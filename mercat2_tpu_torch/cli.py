@@ -4,8 +4,11 @@
     python -m mercat2_tpu_torch.cli -k 21 -f <folder> -o <out> -c 10 -replace
 
 Counts on the CUDA card unless ``-device cpu`` asks for the plain PyTorch
-path; with no card it exits non-zero. Flags whose stages are not ported
-yet raise ``NotImplementedError`` (see ``pipeline.check_supported``).
+path; with no card it exits non-zero. ``-device-metrics`` computes the
+protein metrics and alpha diversity on the same device. ``-debug``,
+``-mesh N`` (N > 1), fastq inputs, k > 256 and codecs of 7 or more bits
+are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
+item (see ``pipeline.check_supported``).
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ def parseargs(argv=None):
                         help="no of host worker threads [auto detect]")
     parser.add_argument("-c", type=int, default=10, help="minimum kmer count [10]")
     parser.add_argument("-prod", action="store_true",
-                        help="run ORF calling on fasta files (not ported yet)")
+                        help="run ORF calling on fasta files")
     parser.add_argument("-fgs", action="store_true",
-                        help="run a second ORF annotation round (not ported yet)")
+                        help="run a second ORF annotation round (FragGeneScanRs)")
     parser.add_argument("-s", type=int, default=100, required=False,
                         help="Split into x MB files. [100]")
     parser.add_argument("-o", type=str, default="mercat_results", required=False,
@@ -67,10 +70,9 @@ def parseargs(argv=None):
     parser.add_argument("-device-metrics", dest="device_metrics",
                         action="store_true",
                         help="protein metrics and alpha diversity on the "
-                        "device (not ported yet)")
+                        "count device (float64)")
     parser.add_argument("-pca", action="store_true",
-                        help="create interactive PCA plot of the samples "
-                        "(not ported yet)")
+                        help="create interactive PCA plot of the samples")
     parser.add_argument("-device", type=str, default="cuda",
                         choices=("cuda", "cpu"),
                         help="count on the CUDA card (the kernels) or on the "
@@ -94,8 +96,6 @@ def main(argv=None):
     args, parser = parseargs(argv)
     from mercat2_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
-    # -lowmem and -category_file shape only the PCA plot; -pca raises below
-
     cfg = PipelineConfig(
         kmer=args.k,
         input_files=list(args.i),
@@ -105,11 +105,13 @@ def main(argv=None):
         chunk_size_mb=args.s,
         output=args.o,
         replace=args.replace,
+        lowmem=args.lowmem,
         skipclean=args.skipclean,
         toupper=args.toupper,
         pca=args.pca,
         prodigal=args.prod,
         fgs=args.fgs,
+        category_file=args.category_file,
         debug=args.debug,
         mesh=args.mesh,
         device_metrics=args.device_metrics,

@@ -1,7 +1,10 @@
 """Key build: packed transport words + validity -> masked sort-key columns.
 
 The port of the Pallas kernel ``build_keys_pallas``
-(``mercat2_tpu/ops/pallas_finalize.py:420-493``). ``build_keys`` launches
+(``mercat2_tpu/ops/pallas_finalize.py:420-493``, bits in {1, 2, 4}) and of
+the JAX package's key build for the other packable widths, bits in
+{3, 5, 6} (``unpack_codes`` + the serial chain of ``ops/kmer_pack.py`` +
+``build_keyed_words``), which has no Pallas kernel. ``build_keys`` launches
 the CUDA kernel in ``csrc/build_keys.cu`` for a CUDA tensor and takes the
 plain twin :func:`build_keys_plain` for a CPU tensor; a CUDA tensor the
 kernel does not take raises, it never falls back to the twin.
@@ -17,9 +20,11 @@ from mercat2_tpu_torch.ops.kmer_pack import key_words_for, pack_kmer_words
 
 __all__ = ["build_keys", "build_keys_plain", "KERNEL_BITS", "KERNEL_K"]
 
-#: symbol widths and k the kernel covers (those of the TPU kernel)
-KERNEL_BITS = (1, 2, 4)
-KERNEL_K = (2, 129)
+#: symbol widths and k the kernel covers: every width of the packed
+#: transport (``counter.py:959``) up to the JAX device bound on k
+#: (``_MAX_DEVICE_K``, ``counter.py:49``)
+KERNEL_BITS = (1, 2, 3, 4, 5, 6)
+KERNEL_K = (1, 256)
 
 
 def build_keys_plain(packed: torch.Tensor, valid: torch.Tensor, *, k: int,

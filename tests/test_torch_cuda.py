@@ -109,7 +109,7 @@ def test_non_cpu_tensors_never_take_the_twin(monkeypatch, counters):
     with pytest.raises(RuntimeError, match="unavailable"):
         build_keys(words, valid, k=21, bits=2, p=1000)
     with pytest.raises(ValueError):  # outside the kernel's range: no twin
-        build_keys(words, valid, k=21, bits=5, p=1000)
+        build_keys(words, valid, k=21, bits=7, p=1000)
     s = torch.empty(1000, dtype=torch.int64, device="meta")
     with pytest.raises(RuntimeError, match="unavailable"):
         finalize_sorted((s,), torch.empty((), dtype=torch.int64, device="meta"),
@@ -120,14 +120,25 @@ def test_non_cpu_tensors_never_take_the_twin(monkeypatch, counters):
 # -- the CUDA kernels against their twins (card only) ------------------------------
 
 
+#: bits that do not divide 32 (3-bit soft-masked DNA, 5-bit protein, 6-bit
+#: mixed-case protein) at every k of interest; n is chosen so that p is
+#: not a multiple of the kernel's 256-thread block
+SPLIT_CASES = [(k, bits, 20011) for bits in (3, 5, 6)
+               for k in (1, 5, 6, 21, 130, 256)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,bits,n", [
     (21, 2, 50000), (16, 2, 20000), (5, 2, 4000), (31, 2, 40000), (7, 4, 9000),
     (129, 2, 30000), (2, 1, 9000), (64, 4, 30000), (32, 1, 9000),
+    (1, 2, 9000), (256, 4, 30000), *SPLIT_CASES,
 ])
 def test_build_keys_kernel_matches_twin(cuda, counters, k, bits, n):
     rng = np.random.default_rng(k + bits)
     words, valid, p = packed_stream(rng, k, bits, n)
+    if p % 256 == 0:
+        raise AssertionError("p is a multiple of the block size")
+    valid[: min(p, 700)] = False  # whole blocks of invalid windows
     w, v = i32(words).to(cuda), torch.from_numpy(valid).to(cuda)
     got = build_keys(w, v, k=k, bits=bits, p=p)
     want = build_keys_plain(w, v, k=k, bits=bits, p=p)
@@ -138,12 +149,27 @@ def test_build_keys_kernel_matches_twin(cuda, counters, k, bits, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 5, 6])
+def test_build_keys_kernel_all_invalid(cuda, counters, bits):
+    """Every window invalid: every key word all-ones, as the twin has it."""
+    rng = np.random.default_rng(bits)
+    words, _, p = packed_stream(rng, 21, bits, 5003)
+    w = i32(words).to(cuda)
+    v = torch.zeros(p, dtype=torch.bool, device=cuda)
+    got = build_keys(w, v, k=21, bits=bits, p=p)
+    want = build_keys_plain(w, v, k=21, bits=bits, p=p)
+    assert build_keys.launches == 1
+    for g, t in zip(got, want, strict=True):
+        assert torch.equal(g, t) and bool((g == -1).all())
+
+
+@pytest.mark.cuda
 def test_build_keys_kernel_refuses_other_widths(cuda):
-    w = torch.zeros(64, dtype=torch.int32, device=cuda)
-    v = torch.ones(2048, dtype=torch.bool, device=cuda)
-    for k, bits in [(21, 5), (1, 2), (130, 2)]:
+    w = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    v = torch.ones(4096 * 32, dtype=torch.bool, device=cuda)
+    for k, bits in [(21, 7), (5, 8), (257, 2), (300, 5)]:
         with pytest.raises(ValueError):
-            build_keys(w, v, k=k, bits=bits, p=64 * (32 // bits) - k + 1)
+            build_keys(w, v, k=k, bits=bits, p=4096 * (32 // bits) - k + 1)
 
 
 @pytest.mark.cuda
@@ -204,6 +230,28 @@ def test_count_kmers_packed_cuda_matches_cpu(cuda, counters, k, n_files):
     args = [i32(words), torch.from_numpy(gb), torch.from_numpy(gb + 2),
             torch.from_numpy(starts)]
     kw = dict(k=k, bits=2, cap=1 << 12, n_files=n_files, n_sym=n_sym)
+    want = count_kmers_packed(*args, 2, **kw)
+    got = count_kmers_packed(*[a.to(cuda) for a in args], 2, **kw)
+    assert build_keys.launches == finalize_sorted.launches == 1
+    assert int(got[2]) == int(want[2]) > 0
+    for g, t in zip(got[0] + [got[1]], want[0] + [want[1]], strict=True):
+        assert torch.equal(g.cpu(), t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 6, 21])  # fid embedded, word, embedded
+def test_count_kmers_packed_protein_cuda_matches_cpu(cuda, counters, k):
+    """One launch of 32 files at bits 5 (6 symbols a word): the card's
+    table is the CPU's in both fid modes."""
+    rng = np.random.default_rng(k)
+    words, _, _ = packed_stream(rng, k, 5, 120_000)
+    words[1900:2150] = words[2200:2450]  # a repeat inside file 3
+    n_sym = words.shape[0] * 6
+    gb = np.sort(rng.integers(0, n_sym, size=40)).astype(np.int32)
+    starts = (np.arange(32) * (n_sym // 32)).astype(np.int32)
+    args = [i32(words), torch.from_numpy(gb), torch.from_numpy(gb + 2),
+            torch.from_numpy(starts)]
+    kw = dict(k=k, bits=5, cap=1 << 12, n_files=32, n_sym=n_sym)
     want = count_kmers_packed(*args, 2, **kw)
     got = count_kmers_packed(*[a.to(cuda) for a in args], 2, **kw)
     assert build_keys.launches == finalize_sorted.launches == 1

@@ -20,6 +20,7 @@ import torch
 from mercat2_tpu import cli as jax_cli
 from mercat2_tpu.engine.counter import KmerCounter as JaxCounter
 from mercat2_tpu_torch import cli
+from mercat2_tpu_torch.engine.counter import KmerCounter
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -76,11 +77,27 @@ def test_cli_matches_jax_cli(monkeypatch, tmp_path, fasta_dir, k):
 
 
 def test_cli_imports_no_jax(tmp_path, fasta_dir):
+    """Nucleotide, .faa and ``-prod -fgs -pca -device-metrics`` runs in
+    one process that never imports jax."""
+    faa = tmp_path / "faa"
+    faa.mkdir()
+    (faa / "prot.faa").write_text(">p1\nMKLVVAGMKLVVAGMKLVVAG\n>p2\nMKLVVAGQQ\n")
+    four = tmp_path / "four"  # PCA runs above 3 samples
+    four.mkdir()
+    rng = np.random.default_rng(4)
+    for name in ("a", "b", "c", "d"):
+        _write_fasta(four / f"{name}.fna", rng, 6)
+    runs = [
+        ["-k", "21", "-f", str(fasta_dir), "-o", str(tmp_path / "o")],
+        ["-k", "3", "-f", str(faa), "-o", str(tmp_path / "faa_o")],
+        ["-k", "5", "-f", str(four), "-o", str(tmp_path / "orf_o"),
+         "-prod", "-fgs", "-pca", "-device-metrics"],
+    ]
     code = (
         "import sys\n"
         "from mercat2_tpu_torch.cli import main\n"
-        f"main(['-k', '21', '-f', {str(fasta_dir)!r}, '-o', {str(tmp_path / 'o')!r},"
-        " '-c', '2', '-device', 'cpu'])\n"
+        f"for argv in {runs!r}:\n"
+        "    main(argv + ['-c', '2', '-device', 'cpu'])\n"
         "assert 'jax' not in sys.modules, 'the port imported jax'\n"
         "print('no jax')\n"
     )
@@ -89,12 +106,13 @@ def test_cli_imports_no_jax(tmp_path, fasta_dir):
     assert out.returncode == 0, out.stderr
     assert "no jax" in out.stdout
     assert (tmp_path / "o" / "tsv_nucleotide" / "alpha_counts.tsv").exists()
+    assert (tmp_path / "faa_o" / "tsv_protein" / "prot_counts.tsv").exists()
+    assert (tmp_path / "orf_o" / "pca_Nucleotide" / "pca.tsv").exists()
+    assert (tmp_path / "orf_o" / "report" / "metrics-prodigal.tsv").exists()
+    assert (tmp_path / "orf_o" / "report" / "metrics-fgs.tsv").exists()
 
 
-@pytest.mark.parametrize("extra", [
-    ["-prod"], ["-fgs"], ["-pca"], ["-device-metrics"], ["-debug"],
-    ["-mesh", "2"], ["-k", "1"], ["-k", "130"],
-])
+@pytest.mark.parametrize("extra", [["-debug"], ["-mesh", "2"], ["-k", "257"]])
 def test_flags_not_ported_raise(tmp_path, fasta_dir, extra):
     argv = ["-k", "5", "-f", str(fasta_dir), "-o", str(tmp_path / "o"),
             "-device", "cpu", *extra]
@@ -104,15 +122,30 @@ def test_flags_not_ported_raise(tmp_path, fasta_dir, extra):
 
 @pytest.mark.parametrize("name,text", [
     ("reads.fastq", "@r1\nACGTACGT\n+\nIIIIIIII\n"),
-    ("prot.faa", ">p1\nMKLVVAG\n"),
-    ("soft.fna", ">c1\nACGTacgtACGTNNNNacgt\n"),  # lowercase: a 3-bit codec
-])
+    # 65 distinct bytes: a 7-bit codec, which the packed transport cannot take
+    ("wide.faa", ">p1\n" + "".join(map(chr, range(58, 123))) + "\n"),
+], ids=["fastq", "7-bit"])
 def test_inputs_not_ported_raise(tmp_path, name, text):
     (tmp_path / name).write_text(text)
     argv = ["-k", "3", "-i", str(tmp_path / name), "-o", str(tmp_path / "o"),
             "-device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv)
+
+
+def test_cli_min_count_1_matches_jax_cli(monkeypatch, tmp_path, fasta_dir):
+    """At ``-c 1`` the JAX CLI takes its adaptive path
+    (mercat2_tpu/pipeline.py:404) and the port its uniform launches, with
+    the overflow rerun (the cap is shrunk so that it runs); the tables are
+    the same."""
+    monkeypatch.setattr(JaxCounter, "_UNIFORM_SYMS", 1 << 16)
+    monkeypatch.setattr(JaxCounter, "_UNIFORM_GAPS", 1 << 10)
+    monkeypatch.setattr(KmerCounter, "_UNIFORM_CAP", 512)
+    common = ["-k", "11", "-f", str(fasta_dir), "-c", "1", "-replace", "-n", "2"]
+    jax_cli.main(common + ["-o", str(tmp_path / "jax"), "-mesh", "off"])
+    cli.main(common + ["-o", str(tmp_path / "torch"), "-device", "cpu"])
+    tsvs = _same_tree(tmp_path / "jax", tmp_path / "torch", "tsv_nucleotide")
+    assert (tmp_path / "torch" / "tsv_nucleotide" / tsvs[0]).read_text().count("\n") > 512
 
 
 def test_cli_without_cuda_exits_nonzero(tmp_path, fasta_dir, capsys):
