@@ -12,8 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card,
    exact integer equality, at the main path's shapes (one 12M-symbol
    launch of 32 files, k=21, 2-bit DNA, min-count 10; the key build also
-   at 5-bit protein, k=5 and k=21) and edge cases (bits 3 and 6, k up to
-   256, the fid word); CUDA-event medians of both.
+   at 5-bit protein, k=5 and k=21, and at 7 and 8 bits, where codes of
+   128 and above set bit 31 of a word) and edge cases (bits 3 and 6, k up
+   to 256, the fid word); CUDA-event medians of both. Then the dense
+   small-keyspace route against the sorted route on the main launch at
+   k=5 and k=7: identical tables, both timed.
 4. slice: 50 generated contig files, 194,489,190 bp, through the port's
    CLI (``-k 21 -c 10``); both kernels must have launched; 3 files are
    recounted with the plain path on the CPU and must give byte-identical
@@ -23,11 +26,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    launched at 5 bits in each run; 3 files recounted on the CPU.
 6. pipeline: MerCat2's documented run without ``-pca`` (``-k 5 -c 10
    -prod -fgs -device-metrics``) over 5 generated contig files, 19,448,919
-   bp with planted genes; the whole output tree must be there and both
-   kernels must have launched in the protein rounds.
+   bp with planted genes; the whole output tree must be there, the
+   nucleotide round must have gone dense and both kernels must have
+   launched in the protein rounds.
+7. fastq: 4 read sets of 200,000 reads of 150 bp (one gzipped), each from
+   its own 2 Mbp genome, with adapter tails and low-quality 3' ends,
+   through the CLI with the QC, trim and fq2fa front end (``-k 21 -c
+   10``); both kernels must have launched and ``clean/`` must hold the
+   front end's files; one sample recounted on the CPU.
+8. wide codecs: a 7-bit printable alphabet through the CLI at ``-c 2``,
+   k=3 and k=21 (launches at 7 bits; one file recounted on the CPU); an
+   8-bit alphabet with bytes of 0x80 and above through the engine
+   (``KmerCounter`` on the card against the same calls on the CPU), since
+   the CLI stops in ``kmer_summary`` on such bytes, as the JAX CLI does.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
-JSON object with each kernel's launches (summed over phases 4-6), error
+JSON object with each kernel's launches (summed over phases 4-8), error
 and times. Imports nothing of JAX.
 """
 
@@ -35,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gzip
 import io
 import json
 import shutil
@@ -203,6 +218,26 @@ def phase_kernels(dev, seed: int) -> dict:
             check("build_keys", f"k={k} bits={bits} p={p}",
                   build_keys(ge.words, valid, **kw), build_keys_plain(ge.words, valid, **kw))
 
+    # -- build_keys at 7 and 8 bits (four symbols a word): random codes up
+    # to 127 and 255, so at 8 bits a slot-0 code sets bit 31 of its word --
+    for bits, ks in ((7, (3, 21)), (8, (4, 21))):
+        gw = to_torch_group(main_path_group(rng, MAIN_SYMS, MAIN_FILES, bits=bits), dev)
+        if bits == 8 and not bool((gw.words < 0).any()):
+            raise AssertionError("no 8-bit word with a code >= 128 in slot 0")
+        for k in ks:
+            p = MAIN_SYMS - k + 1
+            valid = packed_window_validity(gw.gap_begin, gw.gap_end, k, p)
+            kw = dict(k=k, bits=bits, p=p)
+            check("build_keys", f"k={k} bits={bits} p={p}",
+                  build_keys(gw.words, valid, **kw), build_keys_plain(gw.words, valid, **kw))
+            t = [cuda_ms(lambda: build_keys_plain(gw.words, valid, **kw)),
+                 cuda_ms(lambda: build_keys(gw.words, valid, **kw)),
+                 cuda_ms(lambda: build_keys(gw.words, valid, **kw)),
+                 cuda_ms(lambda: build_keys_plain(gw.words, valid, **kw))]
+            res["build_keys"][f"bits{bits}_k{k}"] = t
+            print(f"  build_keys bits={bits} k={k}: plain, kernel, kernel, plain "
+                  f"{t!r} ms", flush=True)
+
     # -- finalize at the main shape (fused u64 keys), then edge cases ----
     keyed, n_valid, _ = packed_sort_keys(
         g.words, g.gap_begin, g.gap_end, g.file_starts, k=K, bits=2,
@@ -249,6 +284,47 @@ def phase_kernels(dev, seed: int) -> dict:
             raise AssertionError("the n_out > cap case did not overflow")
     torch.cuda.synchronize()
     return res
+
+
+def phase_dense(dev, seed: int) -> dict:
+    """The dense route against the sorted route on the main launch shape
+    (12M symbols, 32 files, 2 bits, min-count 10) at k=5 and k=7: the
+    per-file tables must be identical; CUDA-event medians of both routes
+    (each from validity to the compacted table)."""
+    from mercat2_tpu_torch.engine.codec import DNA_CODEC
+    from mercat2_tpu_torch.engine.counter import KmerCounter, to_torch_group
+    from mercat2_tpu_torch.ops.dense_hist import count_kmers_dense
+    from mercat2_tpu_torch.ops.finalize import count_kmers_packed
+
+    rng = np.random.default_rng([seed, 3])
+    group = main_path_group(rng, MAIN_SYMS, MAIN_FILES)
+    g = to_torch_group(group, dev)
+    times = {}
+    for k in (5, 7):
+        c = KmerCounter(k, DNA_CODEC, dev)
+        if not c.dense:
+            raise AssertionError(f"k={k} DNA does not route dense")
+        dense = c.dispatch_packed_fixed(group, MIN_COUNT, MAIN_FILES)
+        c.dense = False
+        sort = c.dispatch_packed_fixed(group, MIN_COUNT, MAIN_FILES)
+        rows = 0
+        for f in range(MAIN_FILES):
+            a, b = dense.row_table(f), sort.row_table(f)
+            if not (np.array_equal(a.kmers, b.kmers) and np.array_equal(a.counts, b.counts)):
+                raise AssertionError(f"dense k={k}: file {f} differs from the sorted route")
+            rows += len(a)
+        if rows == 0:
+            raise AssertionError(f"dense k={k}: no rows kept; the case tests nothing")
+        kw = dict(k=k, bits=2, n_files=MAIN_FILES, n_sym=MAIN_SYMS)
+        args = (g.words, g.gap_begin, g.gap_end, g.file_starts, MIN_COUNT)
+        t = [cuda_ms(lambda: count_kmers_packed(*args, cap=MAIN_CAP, **kw)),
+             cuda_ms(lambda: count_kmers_dense(*args, alphabet_size=4, **kw)),
+             cuda_ms(lambda: count_kmers_dense(*args, alphabet_size=4, **kw)),
+             cuda_ms(lambda: count_kmers_packed(*args, cap=MAIN_CAP, **kw))]
+        times[k] = t
+        print(f"  dense k={k}: {rows} rows over {MAIN_FILES} files, identical to the "
+              f"sorted route; sorted, dense, dense, sorted {t!r} ms", flush=True)
+    return times
 
 
 def write_inputs(folder: Path, seed: int) -> list[Path]:
@@ -421,47 +497,74 @@ def run_cli(argv: list) -> float:
     return wall
 
 
-@contextlib.contextmanager
-def launches_by_bits():
-    """Kernel launches of the count path while the block runs, keyed by
-    the codec's bits per symbol (read off each ``count_kmers_packed``
-    call; the wrappers' counters are read before and after it)."""
-    from mercat2_tpu_torch.engine import counter
+#: what a main path's run counts: the two kernels, and the dense route
+#: (plain PyTorch, no kernel; its count shows that a round took it)
+COUNTED = ("build_keys", "finalize", "dense")
+
+
+def launch_counts() -> dict:
     from mercat2_tpu_torch.ops.build_keys import build_keys
+    from mercat2_tpu_torch.ops.dense_hist import count_kmers_dense
     from mercat2_tpu_torch.ops.finalize_kernel import finalize_sorted
 
-    inner = counter.count_kmers_packed
+    return {"build_keys": build_keys.launches, "finalize": finalize_sorted.launches,
+            "dense": count_kmers_dense.launches}
+
+
+def reset_counts() -> None:
+    from mercat2_tpu_torch.ops.build_keys import build_keys
+    from mercat2_tpu_torch.ops.dense_hist import count_kmers_dense
+    from mercat2_tpu_torch.ops.finalize_kernel import finalize_sorted
+
+    build_keys.launches = finalize_sorted.launches = count_kmers_dense.launches = 0
+
+
+@contextlib.contextmanager
+def launches_by_bits():
+    """Launches of the count path while the block runs, keyed by the
+    codec's bits per symbol (read off each sorted ``count_kmers_packed``
+    and dense ``count_kmers_dense`` call of the counter; the counts are
+    read before and after it)."""
+    from mercat2_tpu_torch.engine import counter
+
     seen: dict[int, dict[str, int]] = {}
+    inner = {name: getattr(counter, name)
+             for name in ("count_kmers_packed", "count_kmers_dense")}
 
-    def spy(*args, bits, **kw):
-        before = build_keys.launches, finalize_sorted.launches
-        out = inner(*args, bits=bits, **kw)
-        by = seen.setdefault(bits, {"build_keys": 0, "finalize": 0})
-        by["build_keys"] += build_keys.launches - before[0]
-        by["finalize"] += finalize_sorted.launches - before[1]
-        return out
+    def spy_of(fn):
+        def spy(*args, bits, **kw):
+            before = launch_counts()
+            out = fn(*args, bits=bits, **kw)
+            by = seen.setdefault(bits, dict.fromkeys(COUNTED, 0))
+            for name, n in launch_counts().items():
+                by[name] += n - before[name]
+            return out
+        return spy
 
-    counter.count_kmers_packed = spy
+    for name, fn in inner.items():
+        setattr(counter, name, spy_of(fn))
     try:
         yield seen
     finally:
-        counter.count_kmers_packed = inner
+        for name, fn in inner.items():
+            setattr(counter, name, fn)
 
 
 def drive(argv: list) -> tuple[float, dict, dict]:
-    """One run of a main path through the CLI: every kernel's count is set
-    to 0 just before it and read just after. Returns the wall time, the
+    """One run of a main path through the CLI: every count is set to 0
+    just before it and read just after. Returns the wall time, the
     launches, and the launches by bits per symbol."""
-    from mercat2_tpu_torch.ops.build_keys import build_keys
-    from mercat2_tpu_torch.ops.finalize_kernel import finalize_sorted
-
-    build_keys.launches = finalize_sorted.launches = 0
+    reset_counts()
     with launches_by_bits() as by_bits:
         wall = run_cli(argv)
-    launches = {"build_keys": build_keys.launches, "finalize": finalize_sorted.launches}
+    launches = launch_counts()
     if launches != {name: sum(b[name] for b in by_bits.values()) for name in launches}:
         raise AssertionError(f"launches outside the count path: {launches} {by_bits}")
     return wall, launches, by_bits
+
+
+def both_kernels(by: dict) -> bool:
+    return by.get("build_keys", 0) > 0 and by.get("finalize", 0) > 0
 
 
 def recount_on_cpu(tag: str, paths: list, card_tsv: Path, out: Path, argv: list) -> None:
@@ -505,8 +608,8 @@ def phase_slice(dev, seed: int) -> dict:
               f"launches {launches}", flush=True)
         if len(rows) != N_FILES or min(rows.values()) < 10_000:
             raise AssertionError(f"expected {N_FILES} tables of >= 10^4 rows: {rows}")
-        if min(launches.values()) == 0:
-            raise AssertionError(f"a kernel of the path never launched: {launches}")
+        if not both_kernels(launches) or launches["dense"]:
+            raise AssertionError(f"both kernels and no dense launch expected: {launches}")
         first = sum(rows[f"sample{f:02d}"] for f in range(3))
         if first <= KmerCounter._UNIFORM_CAP:
             raise AssertionError(f"launch 0 kept {first} rows: no overflow rerun")
@@ -526,7 +629,7 @@ def phase_protein(dev, seed: int) -> dict:
     card, then 3 files recounted on the CPU; returns the launches."""
     work = REPO / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
-    total = {"build_keys": 0, "finalize": 0}
+    total = dict.fromkeys(COUNTED, 0)
     try:
         t0 = time.perf_counter()
         paths = write_proteomes(work / "faa", seed)
@@ -542,7 +645,7 @@ def phase_protein(dev, seed: int) -> dict:
                   f"launches by bits {by_bits}", flush=True)
             if len(rows) != N_FILES or min(rows.values()) < 1000:
                 raise AssertionError(f"expected {N_FILES} tables of >= 10^3 rows: {rows}")
-            if set(by_bits) != {5} or min(by_bits[5].values()) == 0:
+            if set(by_bits) != {5} or not both_kernels(by_bits[5]) or launches["dense"]:
                 raise AssertionError(f"both kernels must launch at 5 bits: {by_bits}")
             for name in total:
                 total[name] += launches[name]
@@ -584,9 +687,202 @@ def phase_pipeline(dev, seed: int) -> dict:
             "report/beta_diversity/braycurtis-fgs.tsv") if not (out / f).is_file()]
         if missing:
             raise AssertionError(f"missing from the output tree: {missing}")
-        if 5 not in by_bits or min(by_bits[5].values()) == 0:
+        if 5 not in by_bits or not both_kernels(by_bits[5]):
             raise AssertionError(f"the protein rounds launched no kernel: {by_bits}")
+        if not by_bits.get(2, {}).get("dense"):
+            raise AssertionError(f"the k=5 nucleotide round did not go dense: {by_bits}")
         return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+#: the fastq phase: read sets of 150 bp reads, each from its own 2 Mbp
+#: genome at ~15x coverage, so that -c 10 keeps rows
+FQ_SETS = 4
+FQ_READS = 200_000
+FQ_LEN = 150
+FQ_GENOME = 2_000_000
+#: what a read runs into past a short insert: the TruSeq read-1 adapter,
+#: an index and the P7 end
+ADAPTER = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCACATCACGATCTCGTATGCCGTCTTCTGCTTG"
+
+
+def write_reads(folder: Path, seed: int) -> list[Path]:
+    """FQ_SETS read sets of FQ_READS reads of FQ_LEN bp, made from
+    ``seed``, each from its own FQ_GENOME bp genome with 0.5% substitutions;
+    10% of the reads run into ``ADAPTER`` after an insert of 87-141 bp,
+    10% have a low-quality 3' tail of 20-90 bases (fastp's default filter
+    drops those above 40% of the read). The last set is gzipped."""
+    folder.mkdir(parents=True, exist_ok=True)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    adapter = np.frombuffer(ADAPTER, np.uint8)
+    pos = np.arange(FQ_LEN)
+    paths = []
+    for i in range(FQ_SETS):
+        rng = np.random.default_rng([seed, 3000 + i])
+        genome = rng.integers(0, 4, size=FQ_GENOME, dtype=np.uint8)
+        starts = rng.integers(0, FQ_GENOME - FQ_LEN, size=FQ_READS)
+        codes = genome[starts[:, None] + pos]
+        hit = rng.random(codes.shape) < 0.005
+        codes[hit] = (codes[hit] + rng.integers(1, 4, size=int(hit.sum()))) % 4
+        seq = acgt[codes]
+        ad = np.flatnonzero(rng.random(FQ_READS) < 0.10)
+        into = pos - rng.integers(FQ_LEN - adapter.size, FQ_LEN - 8, size=ad.size)[:, None]
+        rows = seq[ad]
+        rows[into >= 0] = adapter[into[into >= 0]]
+        seq[ad] = rows
+        qual = (rng.integers(30, 41, size=codes.shape) + 33).astype(np.uint8)
+        lq = np.flatnonzero(rng.random(FQ_READS) < 0.10)
+        tail = rng.integers(20, 91, size=lq.size)[:, None]
+        rows = qual[lq]
+        rows[pos >= FQ_LEN - tail] = ord("#")
+        qual[lq] = rows
+        head = np.frombuffer("".join(f"@s{i}_{r:06d} read {r:06d}\n" for r in range(FQ_READS))
+                             .encode(), np.uint8).reshape(FQ_READS, -1)
+        nl = np.full((FQ_READS, 1), ord("\n"), np.uint8)
+        plus = np.tile(np.frombuffer(b"\n+\n", np.uint8), (FQ_READS, 1))
+        data = np.concatenate([head, seq, plus, qual, nl], axis=1).tobytes()
+        if i == FQ_SETS - 1:
+            path = folder / f"reads{i}.fastq.gz"
+            path.write_bytes(gzip.compress(data, compresslevel=1))
+        else:
+            path = folder / f"reads{i}.fastq"
+            path.write_bytes(data)
+        paths.append(path)
+    return paths
+
+
+def phase_fastq(dev, seed: int) -> dict:
+    """Read sets through the port's CLI at -k 21 -c 10 with the QC, trim
+    and fq2fa front end; one sample recounted on the CPU from its
+    converted FASTA; returns the launches."""
+    work = REPO / "chip_smoke_work"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths = write_reads(work / "fq", seed)
+        n_bases = FQ_SETS * FQ_READS * FQ_LEN
+        print(f"fastq: wrote {FQ_SETS} read sets, {FQ_SETS * FQ_READS} reads, {n_bases} bp "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        out = work / "out"
+        wall, launches, by_bits = drive(["-k", K, "-f", work / "fq", "-o", out,
+                                         "-c", MIN_COUNT, "-replace"])
+        names = [p.name.removesuffix("".join(p.suffixes)) for p in paths]
+        rows = {n: tsv_rows(out / "tsv_nucleotide" / f"{n}_counts.tsv") for n in names}
+        trims = {n: json.loads((out / "clean" / f"{n}-trim.json").read_text()) for n in names}
+        print(f"fastq: wall {wall!r} s, {n_bases / wall!r} bases/s, rows kept {rows}, "
+              f"launches by bits {by_bits}", flush=True)
+        for n, t in trims.items():
+            print(f"fastq: {n}: trim kept {t['kept_reads']} of {t['input_reads']} reads, "
+                  f"adapter {t['adapter']}", flush=True)
+        if min(rows.values()) < 10_000:
+            raise AssertionError(f"expected >= 10^4 rows a read set: {rows}")
+        if not both_kernels(launches) or launches["dense"]:
+            raise AssertionError(f"both kernels and no dense launch expected: {launches}")
+        if any(not 0 < t["kept_reads"] < t["input_reads"] or not t["adapter"]
+               for t in trims.values()):
+            raise AssertionError(f"the trim dropped nothing or found no adapter: {trims}")
+        missing = [f for p, n in zip(paths, names) for f in (
+            f"{p.name}_qc.html", f"{p.name}_qc.json", f"{n}_trim.fastq",
+            f"{n}_trim.fastq_qc.json", f"{n}-trim.json", f"{n}.fna.gz")
+            if not (out / "clean" / f).is_file()]
+        if missing:
+            raise AssertionError(f"missing from clean/: {missing}")
+        recount_on_cpu("fastq", [out / "clean" / f"{names[0]}.fna.gz"],
+                       out / "tsv_nucleotide", work / "cpu",
+                       ["-k", K, "-c", MIN_COUNT, "-skipclean"])
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+#: printable ASCII less ">": 93 symbols, a 7-bit codec
+PRINTABLE = np.array([b for b in range(33, 127) if b != ord(">")], np.uint8)
+#: 132 symbols, 39 of them >= 0x80: an 8-bit codec
+WIDE = np.concatenate([PRINTABLE, np.arange(161, 200, dtype=np.uint8)])
+WIDE_FILES = 4
+WIDE_SYMS = 500_000
+
+
+def write_wide(folder: Path, seed: int, alphabet: np.ndarray) -> list[Path]:
+    """WIDE_FILES FASTA files of WIDE_SYMS symbols over ``alphabet``
+    (records of 100-600), with 10 families of 300 symbols in 12 copies a
+    file, so that every file keeps k-mers at min-count 2."""
+    folder.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for f in range(WIDE_FILES):
+        rng = np.random.default_rng([seed, 4000 + f, alphabet.size])
+        seq = alphabet[rng.integers(0, alphabet.size, size=WIDE_SYMS)]
+        fams = alphabet[rng.integers(0, alphabet.size, size=(10, 300))]
+        for j, at in enumerate(rng.choice(WIDE_SYMS // 400, 120, replace=False) * 400):
+            seq[at : at + 300] = fams[j % 10]
+        cuts = np.cumsum(rng.integers(100, 601, size=WIDE_SYMS // 100))
+        cuts = cuts[cuts < WIDE_SYMS]
+        path = folder / f"wide{f}.faa"
+        write_records(path, [(f"w{f}_{r} synthetic record", rec)
+                             for r, rec in enumerate(np.split(seq, cuts))], 60)
+        paths.append(path)
+    return paths
+
+
+def phase_wide(dev, seed: int) -> dict:
+    """Codecs of 7 and 8 bits: a 7-bit printable alphabet through the CLI
+    at -c 2, k=3 and k=21 (one file recounted on the CPU); an 8-bit
+    alphabet with bytes >= 0x80 through the engine (the CLI stops in
+    kmer_summary on such bytes, in the JAX package too), its tables
+    against the same calls on the CPU. Returns the launches."""
+    from mercat2_tpu_torch.engine.codec import codec_for_bytes
+    from mercat2_tpu_torch.engine.counter import KmerCounter, fetch_tables
+    from mercat2_tpu_torch.engine.host import source_for
+
+    work = REPO / "chip_smoke_work"
+    shutil.rmtree(work, ignore_errors=True)
+    total = dict.fromkeys(COUNTED, 0)
+    try:
+        paths = write_wide(work / "7bit", seed, PRINTABLE)
+        for k in (3, 21):
+            out = work / f"out{k}"
+            wall, launches, by_bits = drive(["-k", k, "-f", work / "7bit", "-o", out,
+                                             "-c", 2, "-replace"])
+            rows = {p.name: tsv_rows(p) for p in (out / "tsv_protein").glob("*_counts.tsv")}
+            print(f"wide 7-bit k={k}: wall {wall!r} s, {sum(rows.values())} rows over "
+                  f"{len(rows)} files, launches by bits {by_bits}", flush=True)
+            if len(rows) != WIDE_FILES or min(rows.values()) == 0:
+                raise AssertionError(f"expected {WIDE_FILES} tables with rows: {rows}")
+            if set(by_bits) != {7} or not both_kernels(by_bits[7]):
+                raise AssertionError(f"both kernels must launch at 7 bits: {by_bits}")
+            for name in total:
+                total[name] += launches[name]
+            recount_on_cpu(f"wide 7-bit k={k}", [paths[1]], out / "tsv_protein",
+                           work / f"cpu{k}", ["-k", k, "-c", 2])
+
+        paths = write_wide(work / "8bit", seed, WIDE)
+        codec = codec_for_bytes(WIDE)  # the alphabet the files are drawn from
+        if codec.bits != 8 or codec.symbols.max() < 0x80:
+            raise AssertionError(f"not an 8-bit codec with bytes >= 0x80: {codec}")
+        for k in (4, 21):
+            tables = []
+            for d in (dev, torch.device("cpu")):  # the card first
+                sources = [source_for(p, codec) for p in paths]
+                reset_counts()
+                try:
+                    tables.append(fetch_tables(KmerCounter(k, codec, d)
+                                               .dispatch_packed_uniform(sources, 2)))
+                finally:
+                    for src in sources:
+                        src.close()
+                if len(tables) == 1:
+                    launches = launch_counts()
+            same = all(np.array_equal(a.kmers, b.kmers) and np.array_equal(a.counts, b.counts)
+                       for a, b in zip(*tables, strict=True))
+            rows = [len(t) for t in tables[0]]
+            print(f"wide 8-bit k={k}: engine on the card, {rows} rows, launches {launches}, "
+                  f"tables equal to the CPU's: {same}", flush=True)
+            if not same or min(rows) == 0 or not both_kernels(launches):
+                raise AssertionError(f"8-bit k={k}: card {rows} vs CPU, launches {launches}")
+            for name in total:
+                total[name] += launches[name]
+        return total
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -625,14 +921,18 @@ def main(argv=None) -> int:
     r = kres["build_keys"]
     print(f"  build_keys bits=5 k=21: kernel {r['bits5_ms']!r} ms, plain "
           f"{r['bits5_plain_ms']!r} / {r['bits5_plain_ms_2']!r} ms", flush=True)
+    print("dense route vs sorted route:", flush=True)
+    phase_dense(dev, args.seed)
 
-    # 4.-6. the main paths through the port's CLI; launches summed
-    launches = {name: 0 for name in KERNELS}
-    for phase in (phase_slice, phase_protein, phase_pipeline):
+    # 4.-8. the main paths through the port's CLI (and the 8-bit engine);
+    # launches summed
+    launches = dict.fromkeys(COUNTED, 0)
+    for phase in (phase_slice, phase_protein, phase_pipeline, phase_fastq, phase_wide):
         t0 = time.perf_counter()
         for name, n in phase(dev, args.seed).items():
             launches[name] += n
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"dense route launches (no kernel; plain PyTorch): {launches['dense']}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

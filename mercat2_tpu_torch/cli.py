@@ -5,10 +5,10 @@
 
 Counts on the CUDA card unless ``-device cpu`` asks for the plain PyTorch
 path; with no card it exits non-zero. ``-device-metrics`` computes the
-protein metrics and alpha diversity on the same device. ``-debug``,
-``-mesh N`` (N > 1), fastq inputs, k > 256 and codecs of 7 or more bits
-are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
-item (see ``pipeline.check_supported``).
+protein metrics and alpha diversity on the same device. ``-mesh N``
+(N > 1) counts on the one device the port sees, and raises
+``NotImplementedError`` naming its ROADMAP item when more than one is
+visible (see ``pipeline.check_supported``).
 """
 
 from __future__ import annotations
@@ -65,8 +65,9 @@ def parseargs(argv=None):
     parser.add_argument("-category_file", type=str, default=None, help=argparse.SUPPRESS)
     parser.add_argument("-debug", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("-mesh", type=str, default="auto",
-                        help="count-engine device mesh: 'auto', 'off' or '1' "
-                        "(one device; more is not ported yet)")
+                        help="count-engine device mesh: 'auto', 'off' or N "
+                        "(counts on one device; N > 1 with several devices "
+                        "visible is not ported yet)")
     parser.add_argument("-device-metrics", dest="device_metrics",
                         action="store_true",
                         help="protein metrics and alpha diversity on the "

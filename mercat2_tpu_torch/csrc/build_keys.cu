@@ -7,7 +7,9 @@
 // VMEM and masks invalid windows in one pass. That kernel takes bits in
 // {1, 2, 4}; for bits in {3, 5, 6} the JAX package computes the same keys
 // outside Pallas (unpack_codes + the serial chain of ops/kmer_pack.py +
-// build_keyed_words), and this file replaces that too.
+// build_keyed_words), and for bits in {7, 8} in its uint8 stream path
+// (count_kmers_device), and this file replaces those too. The port packs
+// every width: 7 and 8 bits ride four symbols a word.
 //
 // What bounds it on an H100: device-memory bytes. Per window it reads
 // bits/8 bytes of packed words (neighbouring windows share them through
@@ -18,18 +20,22 @@
 // one thread per window, so consecutive threads write consecutive
 // addresses of each output column and every store is coalesced.
 //
-// - bits in {1, 2, 4} (bits | 32): window i's payload starts at bit
+// - bits in {1, 2, 4, 8} (bits | 32): window i's payload starts at bit
 //   i*bits of the big-endian stream and every key word is a run of at most
 //   32 bits of it, read straight out of two neighbouring transport words
 //   with one 64-bit shift: O(1) work per key word, not the log tree (which
 //   existed because the TPU kernel had no unaligned access).
-// - bits in {3, 5, 6} (bits does not divide 32): the host packs
+// - bits in {3, 5, 6, 7} (bits does not divide 32): the host packs
 //   per = 32 / bits whole symbols into each word and leaves its low
 //   32 - per*bits bits zero, so the stream is not contiguous and a key
 //   word can straddle symbols and up to three transport words. Key word w
 //   covers bits [b0, b0 + len) of the window's k*bits-bit string; the
 //   thread shifts the at most ceil(32/bits) + 1 symbols that overlap it
-//   into a 64-bit register (<= 36 bits), then shifts and masks once.
+//   into a 64-bit register (<= 42 bits, at 7), then shifts and masks once.
+//
+// Codes of 128 and above (an 8-bit codec of more than 128 symbols) set
+// bit 31 of a word; every word is handled as uint32, so nothing here
+// depends on sign.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,7 +72,7 @@ __global__ void build_keys_kernel(const uint32_t* __restrict__ words,
   }
 }
 
-// bits in {3, 5, 6}: symbol g sits in word g / PER at slot g % PER, slot 0
+// bits in {3, 5, 6, 7}: symbol g sits in word g / PER at slot g % PER, slot 0
 // in the most significant bits. BITS is a template argument so that every
 // division and remainder by PER and BITS is by a constant.
 template <int BITS>
@@ -116,7 +122,7 @@ __global__ void build_keys_split_kernel(const uint32_t* __restrict__ words,
 }  // namespace
 
 // words: uint32[n_words]; valid: uint8[>= p]; out: uint32[payload + tiebreak][p].
-// bits in 1..6 (the wrapper refuses others); the caller guarantees
+// bits in 1..8 (the wrapper refuses others); the caller guarantees
 // n_words * (32 / bits) >= p + k - 1.
 // Returns cudaGetLastError() after the launch.
 extern "C" int m2t_build_keys(const void* words, long long n_words,
@@ -144,7 +150,11 @@ extern "C" int m2t_build_keys(const void* words, long long n_words,
       build_keys_split_kernel<6><<<(unsigned)blocks, threads, 0, st>>>(
           w, v, o, p, payload, kb0, tiebreak);
       break;
-    default:  // 1, 2, 4: bits divide 32
+    case 7:
+      build_keys_split_kernel<7><<<(unsigned)blocks, threads, 0, st>>>(
+          w, v, o, p, payload, kb0, tiebreak);
+      break;
+    default:  // 1, 2, 4, 8: bits divide 32
       build_keys_kernel<<<(unsigned)blocks, threads, 0, st>>>(
           w, n_words, v, o, p, bits, payload, kb0, tiebreak);
   }

@@ -8,7 +8,10 @@ file above that bound gets a launch of its own at its own size (in the
 JAX package it took the adaptive per-file-segment path; the tables are
 the same). Gone, because they existed only for XLA compile cost or the
 TPU link: the size and gap-slot families, the fixed padding of every
-launch to one shape, the speculative fetch prefix and prewarm.
+launch to one shape, the speculative fetch prefix and prewarm. A round
+whose keyspace ``S**k`` is at most ``ops.dense_hist.MAX_BINS`` bins its
+windows in the same launches instead of sorting them (the JAX package's
+dense sibling; its fixed two-file slots existed for XLA compile cost).
 
 Host-to-device copies go through pinned buffers with ``non_blocking``;
 nothing waits for the device until :func:`fetch_tables`.
@@ -23,9 +26,10 @@ import torch
 
 from mercat2_tpu_torch.engine.codec import Codec
 from mercat2_tpu_torch.engine.host import (
-    _REC_GAP, KmerTable, PackedGroup, _bucket_size, _split_fid_tables,
-    build_packed_group,
+    _REC_GAP, KmerTable, PackedGroup, _bucket_size, _split_dense_tables,
+    _split_fid_tables, build_packed_group,
 )
+from mercat2_tpu_torch.ops.dense_hist import MAX_BINS, count_kmers_dense, keyspace
 from mercat2_tpu_torch.ops.finalize import count_kmers_packed, fid_layout
 
 __all__ = ["KmerCounter", "TorchGroup", "fetch_tables", "to_torch_group"]
@@ -115,6 +119,29 @@ class _PendingPacked:
         return self._tables[row]
 
 
+class _PendingDense:
+    """Result of one dense launch; split per file at fetch time. Every
+    surviving bin has a row, so there is no overflow rerun."""
+
+    def __init__(self, counter: "KmerCounter", n_files: int, out):
+        self._c = counter
+        self._n_files = n_files
+        self._out = out  # (bins, counts, n_out) on the device
+        self._tables: list[KmerTable] | None = None
+
+    def _resolve(self, n_out: int) -> None:
+        bins, counts, _ = self._out
+        self._out = None
+        host = torch.stack([bins[:n_out], counts[:n_out]]).cpu().numpy()
+        self._tables = _split_dense_tables(self._c.k, self._c.codec, host[0],
+                                           host[1], self._n_files)
+
+    def row_table(self, row: int) -> KmerTable:
+        if self._tables is None:
+            self._resolve(int(self._out[2]))
+        return self._tables[row]
+
+
 class _MultiView:
     """One file's slice of a combined launch."""
 
@@ -158,6 +185,8 @@ class KmerCounter:
         self.k = k
         self.codec = codec
         self.device = torch.device(device)
+        #: the dense route: bins instead of a sort (keyspace <= MAX_BINS)
+        self.dense = keyspace(k, codec.bits, codec.size) <= MAX_BINS
 
     def fits_uniform(self, source) -> bool:
         """True when ``source`` fits one shared launch of _UNIFORM_SYMS
@@ -206,15 +235,23 @@ class KmerCounter:
         return results
 
     def dispatch_packed_fixed(self, group: PackedGroup, min_count: int,
-                              n_real_files: int) -> _PendingPacked:
-        """Enqueue one fid-tagged launch of ``group`` (non-blocking).
-        ``file_starts`` is padded here to ``_UNIFORM_FILES`` entries."""
+                              n_real_files: int):
+        """Enqueue one fid-tagged launch of ``group`` (non-blocking),
+        dense or sorted. ``file_starts`` is padded here to
+        ``_UNIFORM_FILES`` entries."""
         n_files = self._UNIFORM_FILES
         starts = np.full(n_files, group.n_sym, np.int32)
         starts[:n_real_files] = group.file_starts
         dev = to_torch_group(
             dataclasses.replace(group, file_starts=starts), self.device
         )
+        if self.dense:
+            return _PendingDense(self, n_files, count_kmers_dense(
+                dev.words, dev.gap_begin, dev.gap_end, dev.file_starts,
+                min_count, k=self.k, bits=self.codec.bits,
+                alphabet_size=self.codec.size, n_files=n_files,
+                n_sym=dev.n_sym,
+            ))
         mode, shift = fid_layout(self.k, self.codec.bits, n_files)
         cap = self._UNIFORM_CAP
         out = self._count(dev, min_count, cap, n_files)

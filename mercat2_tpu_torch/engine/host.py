@@ -6,7 +6,8 @@ way. ``mercat2_tpu.engine.counter`` imports JAX at module level, which
 is why the port owns these copies. The ``KmerCounter`` methods
 ``source_for`` and ``build_packed_group`` become functions of
 ``(k, codec)`` here, and ``build_packed_group`` sizes each buffer to its
-content instead of to a compiled shape.
+content instead of to a compiled shape. ``_count_host`` is the JAX
+package's exact numpy path for k above the key-build kernel's bound.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from mercat2_tpu_torch.engine.codec import Codec
 
 __all__ = [
     "KmerTable", "NumpySource", "PackedGroup", "build_packed_group",
-    "merge_tables", "pack_codes_into", "source_for",
+    "count_file_host", "merge_tables", "pack_codes_into", "source_for",
 ]
 
 #: symbols between consecutive records in the packed transport. One is
@@ -108,6 +109,37 @@ def _drop_short_records(seq: np.ndarray, rec: np.ndarray, k: int):
     return seq[keep], rec[keep]
 
 
+def _count_host(seq: np.ndarray, rec: np.ndarray, k: int, min_count: int) -> KmerTable:
+    """Exact host count for k above the key-build kernel's bound
+    (vectorized numpy; ``mercat2_tpu.engine.counter._count_host``)."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    p = seq.shape[0] - k + 1
+    windows = sliding_window_view(seq, k)
+    valid = rec[: p] == rec[k - 1 :]
+    rows = np.ascontiguousarray(windows[valid])
+    if rows.shape[0] == 0:
+        return KmerTable.empty(k)
+    void = rows.view([("", np.uint8)] * k).ravel()
+    uniq, counts = np.unique(void, return_counts=True)
+    if min_count > 1:
+        keepm = counts >= min_count
+        uniq, counts = uniq[keepm], counts[keepm]
+    kmers = uniq.view(np.uint8).reshape(-1, k)
+    return KmerTable(kmers, counts.astype(np.int64))
+
+
+def count_file_host(path, k: int, min_count: int) -> KmerTable:
+    """One file's table by :func:`_count_host`, after dropping records
+    shorter than k (``KmerCounter.count`` of the JAX package for k > 256)."""
+    from mercat2_tpu.io.fasta import parse_fasta_seq
+
+    seq, rec = _drop_short_records(*parse_fasta_seq(path), k)
+    if seq.shape[0] < k:
+        return KmerTable.empty(k)
+    return _count_host(seq, rec, k, min_count)
+
+
 def _sorted_table(k: int, codec: Codec, cols: list[np.ndarray],
                   counts: np.ndarray, n_out: int) -> KmerTable:
     """Host decode of fetched (already compacted) sorted key columns."""
@@ -145,6 +177,24 @@ def _split_fid_tables(k: int, codec: Codec, small, n_out: int, mode: str,
         )
         for f in range(n_files)
     ]
+
+
+def _split_dense_tables(k: int, codec: Codec, bins: np.ndarray,
+                        counts: np.ndarray, n_files: int) -> list[KmerTable]:
+    """Fetched surviving bins of a dense launch (``fid * S**k`` + the
+    base-S window value, ascending) -> per-file sorted tables; the decode
+    of ``decode_dense_histogram`` (mercat2_tpu/ops/mxu_hist.py:142-158)."""
+    s = codec.size
+    n_bins = s**k
+    vals = bins.astype(np.int64)
+    bounds = np.searchsorted(vals // n_bins, np.arange(n_files + 1))
+    vals %= n_bins
+    kmers = np.empty((vals.size, k), np.uint8)
+    for j in range(k - 1, -1, -1):
+        kmers[:, j] = codec.symbols[vals % s]
+        vals //= s
+    counts = counts.astype(np.int64)
+    return [KmerTable(kmers[a:b], counts[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
 
 
 class NumpySource:

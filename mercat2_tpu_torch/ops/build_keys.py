@@ -2,12 +2,15 @@
 
 The port of the Pallas kernel ``build_keys_pallas``
 (``mercat2_tpu/ops/pallas_finalize.py:420-493``, bits in {1, 2, 4}) and of
-the JAX package's key build for the other packable widths, bits in
-{3, 5, 6} (``unpack_codes`` + the serial chain of ``ops/kmer_pack.py`` +
-``build_keyed_words``), which has no Pallas kernel. ``build_keys`` launches
-the CUDA kernel in ``csrc/build_keys.cu`` for a CUDA tensor and takes the
-plain twin :func:`build_keys_plain` for a CPU tensor; a CUDA tensor the
-kernel does not take raises, it never falls back to the twin.
+the JAX package's key build for every other codec width, bits in
+{3, 5, 6, 7, 8} (``unpack_codes`` + the serial chain of
+``ops/kmer_pack.py`` + ``build_keyed_words`` for 3-6, and the uint8
+stream path's ``count_kmers_device`` for 7 and 8), which has no Pallas
+kernel. The port packs every width, 7 and 8 bits four symbols a word.
+``build_keys`` launches the CUDA kernel in ``csrc/build_keys.cu`` for a
+CUDA tensor and takes the plain twin :func:`build_keys_plain` for a CPU
+tensor; a CUDA tensor the kernel does not take raises, it never falls
+back to the twin.
 """
 
 from __future__ import annotations
@@ -20,10 +23,10 @@ from mercat2_tpu_torch.ops.kmer_pack import key_words_for, pack_kmer_words
 
 __all__ = ["build_keys", "build_keys_plain", "KERNEL_BITS", "KERNEL_K"]
 
-#: symbol widths and k the kernel covers: every width of the packed
-#: transport (``counter.py:959``) up to the JAX device bound on k
-#: (``_MAX_DEVICE_K``, ``counter.py:49``)
-KERNEL_BITS = (1, 2, 3, 4, 5, 6)
+#: symbol widths and k the kernel covers: every codec width (a codec has
+#: at most 255 symbols) up to the JAX device bound on k (``_MAX_DEVICE_K``,
+#: ``counter.py:49``); larger k takes the host path
+KERNEL_BITS = (1, 2, 3, 4, 5, 6, 7, 8)
 KERNEL_K = (1, 256)
 
 

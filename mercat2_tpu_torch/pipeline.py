@@ -4,12 +4,14 @@ Port of ``mercat2_tpu.pipeline.run_pipeline`` (which follows MerCat2's
 ``mercat_main``, bin/mercat2.py:186-503), less its multi-host branches::
 
     discover inputs (by extension)
+      fastq -> QC, trim, QC, fq2fa (fastp defaults)           host, reused
       fna -> clean (split at N runs) + GC + assembly stats   host, reused
       faa -> registered as protein samples
     per round (nucleotide, then protein, prodigal, fgs):      process_round
       chunk large files                                        host, reused
       one codec per round                                      _group_plan
       count: launch groups on the device, fetched in waves     _count_group
+        (k > 256: the exact host path, per file)              _count_group_host
         -> tsv_{type}/{sample}_counts.tsv
       combined TSVs + k-mer summary (+ PCA with -pca)          _create_figures
       beta diversity (report/diversity or report/beta_diversity)
@@ -18,11 +20,12 @@ Port of ``mercat2_tpu.pipeline.run_pipeline`` (which follows MerCat2's
     report/report.html, metrics-{type}.tsv/.html, diversity-{type}.tsv
 
 ``-device-metrics`` computes the protein metrics and alpha diversity with
-the port's torch functions on the count device. Still not ported, and
-raising ``NotImplementedError`` naming their ROADMAP item (see
-:func:`check_supported`): codecs of 7 or more bits and k > 256 (item 5),
-fastq inputs (item 9), ``-debug`` (item 10) and ``-mesh N`` for N > 1
-(item 7). Nothing is silently skipped.
+the port's torch functions on the count device; ``-debug`` prints host RAM
+at each stage and writes a ``torch.profiler`` trace to ``torch_trace/``.
+``-mesh N`` counts on the one device the port sees, as the JAX package
+does with one device; with more than one visible it raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 7 (see
+:func:`check_supported`). Nothing is silently skipped.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from mercat2_tpu.io import fastq as fq_mod
 from mercat2_tpu.io.chunker import maybe_chunk
 from mercat2_tpu.io.clean import remove_n
 from mercat2_tpu.io.fasta import parse_fasta_seq
@@ -47,12 +52,16 @@ from mercat2_tpu_torch.engine.codec import (
     alphabet_of, canonical_codec, codec_for_alphabet,
 )
 from mercat2_tpu_torch.engine.counter import KmerCounter, fetch_tables
-from mercat2_tpu_torch.engine.host import _REC_GAP, merge_tables, source_for
+from mercat2_tpu_torch.engine.host import (
+    _REC_GAP, count_file_host, merge_tables, source_for,
+)
+from mercat2_tpu_torch.io.fastq import qc
 from mercat2_tpu_torch.metrics.alpha import compute_alpha_diversity
-from mercat2_tpu_torch.ops.build_keys import KERNEL_BITS, KERNEL_K
+from mercat2_tpu_torch.ops.build_keys import KERNEL_K
 from mercat2_tpu_torch.report import figures as figs
 from mercat2_tpu_torch.report.html import write_html
 from mercat2_tpu_torch.report.tsv import merge_tsv, merge_tsv_T, write_counts_tsv
+from mercat2_tpu_torch.utils.runtime import DebugTrace
 
 __all__ = ["PipelineConfig", "check_supported", "run_pipeline"]
 
@@ -92,28 +101,24 @@ class PipelineConfig:
     device: str = "cuda"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mercat2_tpu_torch yet "
-        f"(ROADMAP.md, Queue 1 {item}); run it with mercat2_tpu"
-    )
-
-
-#: the ROADMAP item of the stream path, which takes what the packed
-#: transport cannot: codecs of 7 or more bits, and k > 256 (exact host path)
-_STREAM_ITEM = "item 5, the non-packable stream path"
+def _visible_devices(device: str) -> int:
+    """Devices a mesh could span: one CPU, or every visible CUDA card."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise for any option whose stage the port does not have yet."""
-    if cfg.debug:
-        raise _not_ported("-debug", "item 10, utils/runtime.py tracing")
-    if cfg.mesh not in ("off", "auto", "1"):
-        raise _not_ported(f"-mesh {cfg.mesh}", "item 7, parallel/")
-    if cfg.kmer > KERNEL_K[1]:
-        raise _not_ported(
-            f"k={cfg.kmer} (the key-build kernel covers k <= {KERNEL_K[1]})",
-            _STREAM_ITEM,
+    """Raise for the one option whose stage the port does not have yet:
+    ``-mesh N`` (N > 1) while more than one device is visible. With one
+    device the JAX package counts on it (``_resolve_mesh`` takes
+    ``min(N, devices)``), and so does the port; ``auto`` always counts on
+    one device."""
+    if cfg.mesh in ("off", "auto"):
+        return
+    if int(cfg.mesh) > 1 and _visible_devices(cfg.device) > 1:
+        raise NotImplementedError(
+            f"-mesh {cfg.mesh} over {_visible_devices(cfg.device)} devices is "
+            "not ported to mercat2_tpu_torch yet (ROADMAP.md, Queue 1 item 7, "
+            "parallel/); run it with mercat2_tpu, or with -mesh off"
         )
 
 
@@ -264,6 +269,22 @@ def _count_group(group: dict, counter: KmerCounter, min_count: int,
     return tsv_list
 
 
+def _count_group_host(group: dict, k: int, min_count: int,
+                      out_tsv_dir: Path) -> dict:
+    """k above the key-build kernel's bound: the JAX package's exact host
+    path (mercat2_tpu/pipeline.py:386-397), per file, merged per sample.
+    Chosen by k alone, before any launch; never a fallback."""
+    print(f"k={k} > {KERNEL_K[1]}: counting on the host (exact numpy path)")
+    tsv_list: dict[str, Path] = {}
+    for basename, files in group.items():
+        merged = merge_tables([count_file_host(f, k, min_count) for f in files], k)
+        if len(merged):
+            tsv_list[basename] = write_counts_tsv(
+                merged, basename, out_tsv_dir / f"{basename}_counts.tsv"
+            )
+    return tsv_list
+
+
 def _create_figures(tsv_list: dict, type_string: str, out_path: Path,
                     cfg: PipelineConfig) -> dict:
     """Combined TSVs, the k-mer summary and, with ``-pca`` and more than
@@ -308,6 +329,17 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
     check_supported(cfg)
     device = resolve_device(cfg.device)
     out = _prepare_output(cfg)
+    debug = DebugTrace(cfg.debug, out / "torch_trace" if cfg.debug else None,
+                       device)
+    with debug:  # the trace is written even when a stage raises
+        _run(cfg, device, out, debug)
+    print("\nFinished MerCat2-TPU Pipeline")
+    return out
+
+
+def _run(cfg: PipelineConfig, device: torch.device, out: Path,
+         debug: DebugTrace) -> None:
+    """Load, every round, the report (the body of :func:`run_pipeline`)."""
     workers = cfg.num_cores or None
     cleanpath = out / "clean"
     report_dir = out / "report"
@@ -322,6 +354,14 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
     }
     gc_content: dict[str, float] = {}
 
+    def load_fastq(path: Path, basename: str):
+        qc(path, cleanpath, basename)
+        f = path
+        if not cfg.skipclean:
+            f = fq_mod.trim(f, cleanpath, basename)
+            qc(f, cleanpath, basename)
+        return basename, fq_mod.fq2fa(f, cleanpath, basename)
+
     def load_contig(path: Path, basename: str):
         if cfg.skipclean:
             return basename, path, None
@@ -329,16 +369,15 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
         return basename, cleaned, stat
 
     inputs = _discover_inputs(cfg)
-    for path in inputs:
-        if _file_ext(Path(path)) in FILE_EXT_FASTQ:
-            raise _not_ported(f"fastq input {path}", "item 9, fastq inputs")
     with ThreadPoolExecutor(max_workers=workers) as pool:
         futures = []
         for path in inputs:
             path = Path(path).expanduser().absolute()
             ext = _file_ext(path)
             basename = path.name.removesuffix(ext)
-            if ext in FILE_EXT_NUCLEOTIDE:
+            if ext in FILE_EXT_FASTQ:  # reads: no stats, no GC entry
+                futures.append(("fastq", pool.submit(load_fastq, path, basename)))
+            elif ext in FILE_EXT_NUCLEOTIDE:
                 futures.append(("fna", pool.submit(load_contig, path, basename)))
                 futures.append(("stats", pool.submit(
                     write_assembly_stats, path, out / "stats" / f"{basename}.txt")))
@@ -346,7 +385,10 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
                 samples["protein"][basename] = [path]
         for kind, fut in futures:
             res = fut.result()
-            if kind == "fna":
+            if kind == "fastq":
+                basename, fasta = res
+                samples["nucleotide"][basename] = [fasta]
+            elif kind == "fna":
                 basename, cleaned, stat = res
                 samples["nucleotide"][basename] = [cleaned]
                 if stat:
@@ -354,6 +396,7 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
     n_files = len(samples["nucleotide"]) + len(samples["protein"])
     print(f"Time to load {n_files} files: "
           f"{round(time.perf_counter() - t_start, 2)} seconds")
+    debug.stage("load")
 
     fig_plots: dict = {}
     diversity_outputs: dict[str, list[Path]] = {}
@@ -376,11 +419,10 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
         codec, handles = _group_plan(group, workers)
         tsv_list: dict[str, Path] = {}
         try:
-            if codec is not None:
-                if codec.bits not in KERNEL_BITS:
-                    raise _not_ported(
-                        f"a {codec.bits}-bit codec (alphabet "
-                        f"{codec.symbols.tobytes()!r})", _STREAM_ITEM)
+            if codec is not None and cfg.kmer > KERNEL_K[1]:
+                tsv_list = _count_group_host(group, cfg.kmer, cfg.min_count,
+                                             out_tsv)
+            elif codec is not None:
                 counter = KmerCounter(cfg.kmer, codec, device)
                 tsv_list = _count_group(group, counter, cfg.min_count,
                                         out_tsv, workers, handles)
@@ -389,6 +431,7 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
                 nf.close()
         print(f"Time to count {cfg.kmer}-mers: "
               f"{round(time.perf_counter() - t0, 2)} seconds")
+        debug.stage(f"count {type_string}")
 
         t0 = time.perf_counter()
         if tsv_list:
@@ -459,6 +502,4 @@ def run_pipeline(cfg: PipelineConfig) -> Path:
             key = "Nucleotide" if typ == "nucleotide" else typ
             merge_tsv(tomerge, report_dir / f"diversity-{key}.tsv")
     print(f"Time to write the report: {round(time.perf_counter() - t0, 2)} seconds")
-
-    print("\nFinished MerCat2-TPU Pipeline")
-    return out
+    debug.stage("finish")

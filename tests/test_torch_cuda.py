@@ -17,6 +17,7 @@ from mercat2_tpu_torch.engine.counter import KmerCounter, fetch_tables
 from mercat2_tpu_torch.engine.host import NumpySource
 from mercat2_tpu_torch.ops import _build
 from mercat2_tpu_torch.ops.build_keys import build_keys, build_keys_plain
+from mercat2_tpu_torch.ops.dense_hist import count_kmers_dense
 from mercat2_tpu_torch.ops.finalize import count_kmers_packed, sort_fused_u64
 from mercat2_tpu_torch.ops.finalize_kernel import (
     finalize_sorted, finalize_sorted_plain,
@@ -109,7 +110,7 @@ def test_non_cpu_tensors_never_take_the_twin(monkeypatch, counters):
     with pytest.raises(RuntimeError, match="unavailable"):
         build_keys(words, valid, k=21, bits=2, p=1000)
     with pytest.raises(ValueError):  # outside the kernel's range: no twin
-        build_keys(words, valid, k=21, bits=7, p=1000)
+        build_keys(words, valid, k=257, bits=2, p=1000)
     s = torch.empty(1000, dtype=torch.int64, device="meta")
     with pytest.raises(RuntimeError, match="unavailable"):
         finalize_sorted((s,), torch.empty((), dtype=torch.int64, device="meta"),
@@ -121,17 +122,20 @@ def test_non_cpu_tensors_never_take_the_twin(monkeypatch, counters):
 
 
 #: bits that do not divide 32 (3-bit soft-masked DNA, 5-bit protein, 6-bit
-#: mixed-case protein) at every k of interest; n is chosen so that p is
-#: not a multiple of the kernel's 256-thread block
-SPLIT_CASES = [(k, bits, 20011) for bits in (3, 5, 6)
+#: mixed-case protein, 7-bit printable bytes) at every k of interest; n is
+#: chosen so that p is not a multiple of the kernel's 256-thread block
+SPLIT_CASES = [(k, bits, 20011) for bits in (3, 5, 6, 7)
                for k in (1, 5, 6, 21, 130, 256)]
+#: 8 bits: codes >= 128 set bit 31 of a word; k=4 fills one word exactly
+#: (the tie-break word)
+WIDE_CASES = [(k, 8, 20011) for k in (1, 3, 4, 5, 21, 130, 256)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,bits,n", [
     (21, 2, 50000), (16, 2, 20000), (5, 2, 4000), (31, 2, 40000), (7, 4, 9000),
     (129, 2, 30000), (2, 1, 9000), (64, 4, 30000), (32, 1, 9000),
-    (1, 2, 9000), (256, 4, 30000), *SPLIT_CASES,
+    (1, 2, 9000), (256, 4, 30000), *SPLIT_CASES, *WIDE_CASES,
 ])
 def test_build_keys_kernel_matches_twin(cuda, counters, k, bits, n):
     rng = np.random.default_rng(k + bits)
@@ -149,7 +153,7 @@ def test_build_keys_kernel_matches_twin(cuda, counters, k, bits, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits", [3, 5, 6])
+@pytest.mark.parametrize("bits", [3, 5, 6, 7, 8])
 def test_build_keys_kernel_all_invalid(cuda, counters, bits):
     """Every window invalid: every key word all-ones, as the twin has it."""
     rng = np.random.default_rng(bits)
@@ -167,7 +171,7 @@ def test_build_keys_kernel_all_invalid(cuda, counters, bits):
 def test_build_keys_kernel_refuses_other_widths(cuda):
     w = torch.zeros(4096, dtype=torch.int32, device=cuda)
     v = torch.ones(4096 * 32, dtype=torch.bool, device=cuda)
-    for k, bits in [(21, 7), (5, 8), (257, 2), (300, 5)]:
+    for k, bits in [(21, 9), (0, 2), (257, 2), (300, 5)]:
         with pytest.raises(ValueError):
             build_keys(w, v, k=k, bits=bits, p=4096 * (32 // bits) - k + 1)
 
@@ -282,3 +286,102 @@ def test_uniform_dispatch_cuda_matches_cpu(cuda, counters, monkeypatch):
         assert len(a) > 256
         np.testing.assert_array_equal(a.kmers, b.kmers)
         np.testing.assert_array_equal(a.counts, b.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bits", [(3, 7), (21, 7), (3, 8), (4, 8), (21, 8)])
+def test_count_kmers_packed_wide_cuda_matches_cpu(cuda, counters, k, bits):
+    """One launch of 32 files at 7 and 8 bits (four symbols a word; codes
+    >= 128 at 8): the card's table is the CPU's."""
+    rng = np.random.default_rng(k + bits)
+    words, _, _ = packed_stream(rng, k, bits, 120_000)
+    words[1900:2150] = words[2200:2450]  # a repeat inside file 3
+    n_sym = words.shape[0] * 4
+    gb = np.sort(rng.integers(0, n_sym, size=40)).astype(np.int32)
+    starts = (np.arange(32) * (n_sym // 32)).astype(np.int32)
+    args = [i32(words), torch.from_numpy(gb), torch.from_numpy(gb + 2),
+            torch.from_numpy(starts)]
+    kw = dict(k=k, bits=bits, cap=1 << 12, n_files=32, n_sym=n_sym)
+    want = count_kmers_packed(*args, 2, **kw)
+    got = count_kmers_packed(*[a.to(cuda) for a in args], 2, **kw)
+    assert build_keys.launches == finalize_sorted.launches == 1
+    assert int(got[2]) == int(want[2]) > 0
+    for g, t in zip(got[0] + [got[1]], want[0] + [want[1]], strict=True):
+        assert torch.equal(g.cpu(), t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_count", [1, 10])
+@pytest.mark.parametrize("n_files", [1, 32])
+@pytest.mark.parametrize("k,bits,size", [(1, 2, 4), (5, 2, 4), (7, 2, 4),
+                                         (2, 5, 26), (6, 3, 5), (1, 8, 200)])
+def test_dense_cuda_matches_cpu(cuda, k, bits, size, n_files, min_count):
+    """The dense route on the card against the same ops on the CPU."""
+    rng = np.random.default_rng(k * bits + n_files)
+    per = 32 // bits
+    n_sym = 60_000 // per * per
+    codes = rng.integers(0, size, size=n_sym).astype(np.uint32)
+    codes[5000:11000] = np.tile(codes[5000:5100], 60)  # >= 10 copies a file
+    shifts = (32 - bits * (np.arange(per) + 1)).astype(np.uint32)
+    words = np.bitwise_or.reduce(codes.reshape(-1, per) << shifts, axis=1)
+    gb = np.sort(rng.integers(0, n_sym, size=40)).astype(np.int32)
+    starts = (np.arange(n_files) * (n_sym // n_files)).astype(np.int32)
+    args = [i32(words), torch.from_numpy(gb), torch.from_numpy(gb + 2),
+            torch.from_numpy(starts)]
+    kw = dict(k=k, bits=bits, alphabet_size=size, n_files=n_files, n_sym=n_sym)
+    want = count_kmers_dense(*args, min_count, **kw)
+    before = count_kmers_dense.launches
+    got = count_kmers_dense(*[a.to(cuda) for a in args], min_count, **kw)
+    assert count_kmers_dense.launches == before + 1
+    assert int(got[2]) == int(want[2]) > 0
+    for g, t in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), t)
+
+
+@pytest.mark.cuda
+def test_uniform_dispatch_dense_cuda_matches_cpu(cuda, monkeypatch):
+    """The dense route through the counter (k=5, DNA), several launches:
+    the card's tables are the CPU's, and no kernel launched."""
+    monkeypatch.setattr(KmerCounter, "_UNIFORM_SYMS", 1 << 16)
+    rng = np.random.default_rng(6)
+    files = []
+    for _ in range(6):
+        seq = DNA_CODEC.symbols[rng.integers(0, 4, size=20_000)]
+        files.append((seq, np.repeat(np.arange(4), 5000)))
+    tables = {}
+    saved = build_keys.launches
+    for dev in (torch.device("cpu"), cuda):
+        c = KmerCounter(5, DNA_CODEC, dev)
+        assert c.dense
+        tables[dev.type] = fetch_tables(c.dispatch_packed_uniform(
+            [NumpySource(s, r, DNA_CODEC) for s, r in files], 10))
+    assert build_keys.launches == saved
+    for a, b in zip(tables["cpu"], tables["cuda"], strict=True):
+        assert len(a) > 100
+        np.testing.assert_array_equal(a.kmers, b.kmers)
+        np.testing.assert_array_equal(a.counts, b.counts)
+
+
+@pytest.mark.cuda
+def test_debug_run_traces_the_card(cuda, counters, tmp_path):
+    """``-debug`` on the card: the ``torch.profiler`` trace holds the CUDA
+    kernels' launches and device activity beside the CPU ops."""
+    import json
+
+    from mercat2_tpu_torch import cli
+
+    rng = np.random.default_rng(8)
+    folder = tmp_path / "in"
+    folder.mkdir()
+    rep = DNA_CODEC.symbols[rng.integers(0, 4, size=200)].tobytes().decode()
+    for f in range(2):
+        seq = DNA_CODEC.symbols[rng.integers(0, 4, size=5000)].tobytes().decode()
+        (folder / f"s{f}.fna").write_text(f">r{f}\n{seq}\n>rep{f}\n{rep * 4}\n")
+    out = tmp_path / "out"
+    cli.main(["-k", "21", "-f", str(folder), "-o", str(out), "-c", "2",
+              "-device", "cuda", "-debug"])
+    assert build_keys.launches > 0 and finalize_sorted.launches > 0
+    events = json.loads((out / "torch_trace" / "trace.json").read_text())["traceEvents"]
+    cats = {e.get("cat") for e in events}
+    assert "cpu_op" in cats and "kernel" in cats, sorted(c for c in cats if c)
+    assert (out / "tsv_nucleotide" / "s0_counts.tsv").is_file()

@@ -1,4 +1,5 @@
-"""The port's CLI against the JAX package's CLI, and what it refuses.
+"""The port's CLI against the JAX package's CLI, what it refuses, and
+its packaging.
 
 Both CLIs count the same FASTA folders (records with N runs and planted
 repeats, so the k=21 and k=31 tables are not empty); the count TSVs and
@@ -8,9 +9,11 @@ shrunk, so that it does not compile a 12M-row program on the CPU.
 """
 
 import gzip
+import json
 import shutil
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +24,9 @@ from mercat2_tpu import cli as jax_cli
 from mercat2_tpu.engine.counter import KmerCounter as JaxCounter
 from mercat2_tpu_torch import cli
 from mercat2_tpu_torch.engine.counter import KmerCounter
+from mercat2_tpu_torch.utils import StageTimer
+from test_torch_fastq import write_reads
+from test_torch_report import run_both, same_tree
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -77,8 +83,8 @@ def test_cli_matches_jax_cli(monkeypatch, tmp_path, fasta_dir, k):
 
 
 def test_cli_imports_no_jax(tmp_path, fasta_dir):
-    """Nucleotide, .faa and ``-prod -fgs -pca -device-metrics`` runs in
-    one process that never imports jax."""
+    """Nucleotide, .faa, ``-prod -fgs -pca -device-metrics`` and fastq
+    ``-debug`` runs in one process that never imports jax."""
     faa = tmp_path / "faa"
     faa.mkdir()
     (faa / "prot.faa").write_text(">p1\nMKLVVAGMKLVVAGMKLVVAG\n>p2\nMKLVVAGQQ\n")
@@ -87,11 +93,13 @@ def test_cli_imports_no_jax(tmp_path, fasta_dir):
     rng = np.random.default_rng(4)
     for name in ("a", "b", "c", "d"):
         _write_fasta(four / f"{name}.fna", rng, 6)
+    reads = write_reads(tmp_path / "reads", seed=5, n_reads=60)
     runs = [
         ["-k", "21", "-f", str(fasta_dir), "-o", str(tmp_path / "o")],
         ["-k", "3", "-f", str(faa), "-o", str(tmp_path / "faa_o")],
         ["-k", "5", "-f", str(four), "-o", str(tmp_path / "orf_o"),
          "-prod", "-fgs", "-pca", "-device-metrics"],
+        ["-k", "21", "-f", str(reads), "-o", str(tmp_path / "fq_o"), "-debug"],
     ]
     code = (
         "import sys\n"
@@ -110,27 +118,74 @@ def test_cli_imports_no_jax(tmp_path, fasta_dir):
     assert (tmp_path / "orf_o" / "pca_Nucleotide" / "pca.tsv").exists()
     assert (tmp_path / "orf_o" / "report" / "metrics-prodigal.tsv").exists()
     assert (tmp_path / "orf_o" / "report" / "metrics-fgs.tsv").exists()
+    assert (tmp_path / "fq_o" / "clean" / "s2.fastq.gz_qc.html").exists()
+    assert (tmp_path / "fq_o" / "tsv_nucleotide" / "s1_counts.tsv").exists()
 
 
-@pytest.mark.parametrize("extra", [["-debug"], ["-mesh", "2"], ["-k", "257"]])
-def test_flags_not_ported_raise(tmp_path, fasta_dir, extra):
+@pytest.mark.parametrize("extra", [["-mesh", "2"], ["-mesh", "8"]])
+def test_flags_not_ported_raise(monkeypatch, tmp_path, fasta_dir, extra):
+    """``-mesh N`` (N > 1) raises only while more than one device is
+    visible (the count is patched to 2 cards); checked before the device
+    is resolved, so it raises here without a card."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     argv = ["-k", "5", "-f", str(fasta_dir), "-o", str(tmp_path / "o"),
-            "-device", "cpu", *extra]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+            "-device", "cuda", *extra]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7"):
         cli.main(argv)
+    assert not (tmp_path / "o").exists()
 
 
-@pytest.mark.parametrize("name,text", [
-    ("reads.fastq", "@r1\nACGTACGT\n+\nIIIIIIII\n"),
-    # 65 distinct bytes: a 7-bit codec, which the packed transport cannot take
-    ("wide.faa", ">p1\n" + "".join(map(chr, range(58, 123))) + "\n"),
-], ids=["fastq", "7-bit"])
-def test_inputs_not_ported_raise(tmp_path, name, text):
-    (tmp_path / name).write_text(text)
-    argv = ["-k", "3", "-i", str(tmp_path / name), "-o", str(tmp_path / "o"),
-            "-device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
+@pytest.mark.parametrize("mesh", ["2", "1", "off"])
+def test_mesh_on_one_device_matches_jax_cli(monkeypatch, tmp_path, fasta_dir, mesh):
+    """With one device visible (``-device cpu`` is one) ``-mesh N`` counts
+    on it, as the JAX package does (``_resolve_mesh`` takes min(N, devices)
+    and no mesh at 1)."""
+    monkeypatch.setattr(JaxCounter, "_UNIFORM_SYMS", 1 << 16)
+    monkeypatch.setattr(JaxCounter, "_UNIFORM_GAPS", 1 << 10)
+    common = ["-k", "21", "-f", str(fasta_dir), "-c", "2", "-replace", "-n", "2"]
+    jax_cli.main(common + ["-o", str(tmp_path / "jax"), "-mesh", "off"])
+    cli.main(common + ["-o", str(tmp_path / "torch"), "-device", "cpu", "-mesh", mesh])
+    _same_tree(tmp_path / "jax", tmp_path / "torch", "tsv_nucleotide")
+
+
+def test_debug_matches_jax_cli(monkeypatch, tmp_path, fasta_dir, capsys):
+    """``-debug``: host RAM at the JAX pipeline's stages and a
+    ``torch.profiler`` Chrome trace in ``torch_trace/``; without the two
+    trace folders the output trees are the same."""
+    jax_tree, torch_tree = run_both(
+        monkeypatch, tmp_path, ["-k", 21, "-f", fasta_dir, "-c", 2, "-debug"])
+    log = capsys.readouterr().out
+    stages = ["load", "count Nucleotide", "finish"]
+    for stage in stages:
+        assert log.count(f"[debug] {stage}: host RAM") == 2, stage  # both CLIs
+    trace = json.loads((torch_tree / "torch_trace" / "trace.json").read_text())
+    assert any(e.get("name", "").startswith("aten::") for e in trace["traceEvents"])
+    assert (jax_tree / "jax_trace").is_dir()
+    shutil.rmtree(jax_tree / "jax_trace")
+    shutil.rmtree(torch_tree / "torch_trace")
+    same_tree(jax_tree, torch_tree)
+
+
+def test_stage_timer(capsys):
+    timer = StageTimer()
+    with timer:
+        timer.start("load")
+        timer.start("count")
+    assert [name for name, _ in timer.stages] == ["load", "count"]
+    assert all(dt >= 0 for _, dt in timer.stages)
+    assert capsys.readouterr().out.count("Time to ") == 2
+
+
+def test_pyproject_lists_every_subpackage():
+    """An installed ``mercat2-tpu-torch`` holds every subpackage of the
+    port (a missing one fails at import, before any flag is parsed)."""
+    with open(REPO / "pyproject.toml", "rb") as f:
+        listed = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
+    pkg = REPO / "mercat2_tpu_torch"
+    found = {".".join(p.parent.relative_to(REPO).parts)
+             for p in pkg.rglob("__init__.py")}
+    assert "mercat2_tpu_torch.metrics" in found
+    assert found <= listed, sorted(found - listed)
 
 
 def test_cli_min_count_1_matches_jax_cli(monkeypatch, tmp_path, fasta_dir):
