@@ -13,10 +13,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    exact integer equality, at the main path's shapes (one 12M-symbol
    launch of 32 files, k=21, 2-bit DNA, min-count 10; the key build also
    at 5-bit protein, k=5 and k=21, and at 7 and 8 bits, where codes of
-   128 and above set bit 31 of a word) and edge cases (bits 3 and 6, k up
-   to 256, the fid word); CUDA-event medians of both. Then the dense
-   small-keyspace route against the sorted route on the main launch at
-   k=5 and k=7: identical tables, both timed.
+   128 and above set bit 31 of a word) and edge cases (every width at 1
+   and 32 files, with the fused int64 column, the embedded fid and the fid
+   word, k up to 256; the finalize over runs across tile edges, a run
+   longer than a tile, n_valid inside a run, m = 1 and m beyond the halo,
+   cap below n_out, word mode with 1, 3 and 4 columns); CUDA-event medians
+   of both, the pre-sort half and the whole launch at the main shape, and
+   the finalize's library yardstick (``torch.unique_consecutive``). Then
+   the dense small-keyspace route against the sorted route on the main
+   launch at k=5 and k=7: identical tables, both timed.
 4. slice: 50 generated contig files, 194,489,190 bp, through the port's
    CLI (``-k 21 -c 10``); both kernels must have launched; 3 files are
    recounted with the plain path on the CPU and must give byte-identical
@@ -41,8 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the CLI stops in ``kmer_summary`` on such bytes, as the JAX CLI does.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
-JSON object with each kernel's launches (summed over phases 4-8), error
-and times. Imports nothing of JAX.
+JSON object with each kernel's launches (summed over phases 4-8), error,
+times, bound (bytes at the H100 SXM's 3.35 TB/s) and library yardstick.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -80,6 +86,8 @@ MAIN_SYMS = 12 << 20
 MAIN_FILES = 32
 MAIN_CAP = 1 << 19
 REPS = 10
+#: device-memory bandwidth of the H100 SXM (NVIDIA's data sheet, 700 W)
+PEAK_BYTES_S = 3.35e12
 
 KERNELS = {
     "build_keys": {
@@ -102,13 +110,17 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs, after one
-    warm-up run."""
+    """Median device time of ``fn()`` over ``reps`` runs, after one warm-up
+    run: CUDA events around each call, after a sleep on the stream that
+    lets the host enqueue the call first, so that host overhead does not
+    count where the call does not sync."""
     fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -154,13 +166,59 @@ def main_path_group(rng, n_sym: int, n_files: int, bits: int = 2):
                        gap_begin=gb.astype(np.int32), gap_end=ge.astype(np.int32))
 
 
+def bound_ms(n_bytes: int) -> float:
+    """The least time the card could take to move ``n_bytes`` once."""
+    return n_bytes / PEAK_BYTES_S * 1e3
+
+
+#: rows of a finalize tile of the fused column (csrc/finalize.cu); word
+#: columns take this many or a power-of-two fraction, so its multiples are
+#: tile edges in every form
+FIN_TILE = 4096
+#: the fused column's invalid marker: all-ones with the sign bit flipped
+MARK64 = (1 << 63) - 1
+
+
+def edge_columns(rng, dev, p: int, m: int, n_words: int):
+    """Sorted keys in runs of 1..2m+4 rows, one run of 1.5 tiles across a
+    tile edge, and n_valid inside a run; ``n_words`` 0 gives one fused
+    int64 column, else that many int32 word columns. Returns (columns,
+    n_valid)."""
+    is_start = np.zeros(p, bool)
+    is_start[np.cumsum(rng.integers(1, 2 * m + 5, size=p))[: p // 2].clip(max=p - 1)] = True
+    is_start[0] = True
+    long0 = FIN_TILE + 2000
+    is_start[long0 + 1 : long0 + 6144] = False
+    is_start[long0] = is_start[long0 + 6144] = True
+    run = np.cumsum(is_start) - 1
+    begins = np.flatnonzero(is_start)
+    lens = np.diff(np.append(begins, p))
+    n_valid = int(begins[(lens >= 4) & (begins > p - FIN_TILE)][0]) + 2
+    if not any(run[e - 1] == run[e] and lens[run[e]] >= max(m, 2)
+               for e in range(FIN_TILE, p, FIN_TILE)):
+        raise AssertionError("no surviving run crosses a tile edge")
+    key = run.astype(np.int64) * 3 + 1
+    if n_words == 0:
+        key[n_valid:] = MARK64
+        return (torch.from_numpy(key).to(dev),), n_valid
+    width = -(-20 // n_words)
+    cols = []
+    for c in range(n_words):
+        col = ((key >> (width * (n_words - 1 - c))) & ((1 << width) - 1)).astype(np.uint32)
+        col[n_valid:] = 0xFFFFFFFF
+        cols.append(torch.from_numpy(col.view(np.int32)).to(dev))
+    return tuple(cols), n_valid
+
+
 def phase_kernels(dev, seed: int) -> dict:
-    """Each kernel against its plain twin on the card; returns per-kernel
-    results (max_abs_err over every case, main-shape times)."""
+    """Each kernel against its plain twin on the card. Returns per-kernel
+    results (max_abs_err over every case, main-shape times, bytes moved,
+    library yardstick) and the main launch's pre-sort-half and
+    whole-launch times."""
     from mercat2_tpu_torch.engine.counter import to_torch_group
     from mercat2_tpu_torch.ops.build_keys import build_keys, build_keys_plain
     from mercat2_tpu_torch.ops.finalize import (
-        packed_sort_keys, packed_window_validity, sort_fused_u64, sort_words,
+        count_kmers_packed, packed_sort_keys, packed_window_validity, sort_words,
     )
     from mercat2_tpu_torch.ops.finalize_kernel import (
         finalize_sorted, finalize_sorted_plain,
@@ -176,73 +234,79 @@ def phase_kernels(dev, seed: int) -> dict:
         if err:
             raise AssertionError(f"{name} {case}: kernel != plain twin")
 
-    # -- build_keys at the main shape, then edge widths ------------------
-    g = to_torch_group(main_path_group(rng, MAIN_SYMS, MAIN_FILES), dev)
-    for k, bits, n_sym in [(K, 2, MAIN_SYMS), (5, 2, 1 << 20), (16, 2, 1 << 20),
-                           (31, 2, 1 << 20), (7, 4, 1 << 20)]:
-        per = 32 // bits
-        words = g.words[: n_sym // per]
-        p = n_sym - k + 1
-        valid = packed_window_validity(g.gap_begin, g.gap_end, k, p)
-        kw = dict(k=k, bits=bits, p=p)
-        check("build_keys", f"k={k} bits={bits} p={p}",
-              build_keys(words, valid, **kw), build_keys_plain(words, valid, **kw))
-        if n_sym == MAIN_SYMS:
-            res["build_keys"]["plain_ms"] = cuda_ms(lambda: build_keys_plain(words, valid, **kw))
-            res["build_keys"]["ms"] = cuda_ms(lambda: build_keys(words, valid, **kw))
-            res["build_keys"]["plain_ms_2"] = cuda_ms(lambda: build_keys_plain(words, valid, **kw))
+    def keys_case(grp, k, bits, n_sym, n_files):
+        """build_keys against its twin on ``n_sym`` symbols of ``grp``;
+        returns the call's arguments."""
+        words = grp.words[: n_sym // (32 // bits)]
+        p = words.shape[0] * (32 // bits) - k + 1
+        valid = packed_window_validity(grp.gap_begin, grp.gap_end, k, p)
+        args = (words, valid, grp.file_starts if n_files > 1 else None)
+        kw = dict(k=k, bits=bits, p=p, n_files=n_files)
+        (gc, gn), (wc, wn) = build_keys(*args, **kw), build_keys_plain(*args, **kw)
+        form = "fused int64" if gc[0].dtype == torch.int64 else f"{len(gc)} int32"
+        check("build_keys", f"k={k} bits={bits} files={n_files} p={p} ({form})",
+              (*gc, gn), (*wc, wn))
+        return args, kw
 
-    # -- build_keys at 5-bit protein (6 symbols a word, keys straddle
-    # words), then the other widths that do not divide 32 -----------------
+    # -- build_keys at the main shape, then every width at 1 and 32 files:
+    # a key of one word and part of the next (fused), one word (the
+    # tie-break or fid word: fused), and many words ------------------------
+    g = to_torch_group(main_path_group(rng, MAIN_SYMS, MAIN_FILES), dev)
+    args, kw = keys_case(g, K, 2, MAIN_SYMS, MAIN_FILES)
+    r = res["build_keys"]
+    r["plain_ms"] = cuda_ms(lambda: build_keys_plain(*args, **kw))
+    r["ms"] = cuda_ms(lambda: build_keys(*args, **kw))
+    r["plain_ms_2"] = cuda_ms(lambda: build_keys_plain(*args, **kw))
+    words, valid = args[0], args[1]
+    r["bytes"] = words.numel() * 4 + kw["p"] * (1 + 8) + MAIN_FILES * 4 + 8
+    for bits, grp in ((1, g), (2, g), (4, g)):
+        for k in sorted({32 // bits, 40 // bits + 1, 5, 31, 130}):
+            for n_files in (1, MAIN_FILES):
+                keys_case(grp, k, bits, 1 << 20, n_files)
+
+    # -- 5-bit protein (6 symbols a word, keys straddle words), then the
+    # other widths that do not divide 32 -----------------------------------
     gp = to_torch_group(main_path_group(rng, MAIN_SYMS, MAIN_FILES, bits=5), dev)
     for k in (5, 21, 6, 1, 256):  # k=6: the fid takes a word of its own
-        p = MAIN_SYMS - k + 1
-        valid = packed_window_validity(gp.gap_begin, gp.gap_end, k, p)
-        kw = dict(k=k, bits=5, p=p)
-        check("build_keys", f"k={k} bits=5 p={p}",
-              build_keys(gp.words, valid, **kw), build_keys_plain(gp.words, valid, **kw))
+        args5, kw5 = keys_case(gp, k, 5, MAIN_SYMS, MAIN_FILES)
         if k == 21:
-            res["build_keys"]["bits5_plain_ms"] = cuda_ms(
-                lambda: build_keys_plain(gp.words, valid, **kw))
-            res["build_keys"]["bits5_ms"] = cuda_ms(lambda: build_keys(gp.words, valid, **kw))
-            res["build_keys"]["bits5_plain_ms_2"] = cuda_ms(
-                lambda: build_keys_plain(gp.words, valid, **kw))
+            r["bits5_plain_ms"] = cuda_ms(lambda: build_keys_plain(*args5, **kw5))
+            r["bits5_ms"] = cuda_ms(lambda: build_keys(*args5, **kw5))
+            r["bits5_plain_ms_2"] = cuda_ms(lambda: build_keys_plain(*args5, **kw5))
+    for k in (6, 7, 9, 21):
+        keys_case(gp, k, 5, 1 << 20, 1)
     for bits in (3, 6):
         per = 32 // bits
         n_sym = (2 << 20) // per * per
         ge = to_torch_group(main_path_group(rng, n_sym, MAIN_FILES, bits=bits), dev)
-        for k in (1, 6, 130, 256):
-            p = n_sym - k + 1
-            valid = packed_window_validity(ge.gap_begin, ge.gap_end, k, p)
-            kw = dict(k=k, bits=bits, p=p)
-            check("build_keys", f"k={k} bits={bits} p={p}",
-                  build_keys(ge.words, valid, **kw), build_keys_plain(ge.words, valid, **kw))
+        for k in sorted({1, 32 // bits, 40 // bits + 1, 130, 256}):
+            for n_files in (1, MAIN_FILES):
+                keys_case(ge, k, bits, n_sym, n_files)
 
-    # -- build_keys at 7 and 8 bits (four symbols a word): random codes up
-    # to 127 and 255, so at 8 bits a slot-0 code sets bit 31 of its word --
+    # -- 7 and 8 bits (four symbols a word): random codes up to 127 and
+    # 255, so at 8 bits a slot-0 code sets bit 31 of its word -------------
     for bits, ks in ((7, (3, 21)), (8, (4, 21))):
         gw = to_torch_group(main_path_group(rng, MAIN_SYMS, MAIN_FILES, bits=bits), dev)
         if bits == 8 and not bool((gw.words < 0).any()):
             raise AssertionError("no 8-bit word with a code >= 128 in slot 0")
         for k in ks:
-            p = MAIN_SYMS - k + 1
-            valid = packed_window_validity(gw.gap_begin, gw.gap_end, k, p)
-            kw = dict(k=k, bits=bits, p=p)
-            check("build_keys", f"k={k} bits={bits} p={p}",
-                  build_keys(gw.words, valid, **kw), build_keys_plain(gw.words, valid, **kw))
-            t = [cuda_ms(lambda: build_keys_plain(gw.words, valid, **kw)),
-                 cuda_ms(lambda: build_keys(gw.words, valid, **kw)),
-                 cuda_ms(lambda: build_keys(gw.words, valid, **kw)),
-                 cuda_ms(lambda: build_keys_plain(gw.words, valid, **kw))]
-            res["build_keys"][f"bits{bits}_k{k}"] = t
+            argw, kww = keys_case(gw, k, bits, MAIN_SYMS, MAIN_FILES)
+            t = [cuda_ms(lambda: build_keys_plain(*argw, **kww)),
+                 cuda_ms(lambda: build_keys(*argw, **kww)),
+                 cuda_ms(lambda: build_keys(*argw, **kww)),
+                 cuda_ms(lambda: build_keys_plain(*argw, **kww))]
+            r[f"bits{bits}_k{k}"] = t
             print(f"  build_keys bits={bits} k={k}: plain, kernel, kernel, plain "
                   f"{t!r} ms", flush=True)
+        for k in (32 // bits, 40 // bits + 1):
+            for n_files in (1, MAIN_FILES):
+                keys_case(gw, k, bits, 1 << 20, n_files)
 
     # -- finalize at the main shape (fused u64 keys), then edge cases ----
-    keyed, n_valid, _ = packed_sort_keys(
-        g.words, g.gap_begin, g.gap_end, g.file_starts, k=K, bits=2,
-        n_files=MAIN_FILES, n_sym=MAIN_SYMS)
-    s = sort_fused_u64(keyed)
+    main = dict(k=K, bits=2, n_files=MAIN_FILES, n_sym=MAIN_SYMS)
+    (col,), n_valid, _ = packed_sort_keys(g.words, g.gap_begin, g.gap_end,
+                                          g.file_starts, **main)
+    s = torch.sort(col).values
     fin = dict(min_count=MIN_COUNT, cap=MAIN_CAP)
     got = finalize_sorted((s,), n_valid, **fin)
     want = finalize_sorted_plain((s,), n_valid, **fin)
@@ -250,9 +314,20 @@ def phase_kernels(dev, seed: int) -> dict:
           (*got[0], got[1], got[2]), (*want[0], want[1], want[2]))
     if int(want[2]) == 0:
         raise AssertionError("main-shape finalize kept no rows: the case tests nothing")
-    res["finalize"]["plain_ms"] = cuda_ms(lambda: finalize_sorted_plain((s,), n_valid, **fin))
-    res["finalize"]["ms"] = cuda_ms(lambda: finalize_sorted((s,), n_valid, **fin))
-    res["finalize"]["plain_ms_2"] = cuda_ms(lambda: finalize_sorted_plain((s,), n_valid, **fin))
+    f = res["finalize"]
+    f["plain_ms"] = cuda_ms(lambda: finalize_sorted_plain((s,), n_valid, **fin))
+    f["ms"] = cuda_ms(lambda: finalize_sorted((s,), n_valid, **fin))
+    f["plain_ms_2"] = cuda_ms(lambda: finalize_sorted_plain((s,), n_valid, **fin))
+    f["bytes"] = int(n_valid) * 8 + MAIN_CAP * (8 + 4) + 8 + 4
+
+    def library():  # one PyTorch call for the same function, syncs included
+        u, c = torch.unique_consecutive(s[: int(n_valid)], return_counts=True)
+        keep = c >= MIN_COUNT
+        return u[keep], c[keep]
+
+    if len(library()[0]) != int(want[2]):
+        raise AssertionError("unique_consecutive keeps another number of rows")
+    f["library_ms"] = cuda_ms(library)
 
     keyed31, nv31, _ = packed_sort_keys(
         g.words, g.gap_begin, g.gap_end, g.file_starts, k=31, bits=2,
@@ -266,15 +341,28 @@ def phase_kernels(dev, seed: int) -> dict:
         protein[k] = (tuple(sort_words(keyed_p)), nv_p)
     p = s.shape[0]
     run = torch.full((p,), 12345, dtype=torch.int64, device=dev)
+    cut = int(n_valid) // 2  # n_valid inside a run of the main column
+    while not bool(s[cut - 1] == s[cut]):
+        cut += 1
     cases = [
         ("min_count=1", (s,), n_valid, 1, MAIN_CAP),
+        ("m=100, beyond the halo", (s,), n_valid, 100, MAIN_CAP),
         ("n_out>cap", (s,), n_valid, MIN_COUNT, 1000),
+        ("n_valid inside a run", (s,), torch.tensor(cut, device=dev), 2, MAIN_CAP),
         ("empty n_valid=0", (s,), torch.zeros((), dtype=torch.int64, device=dev), 2, 64),
         ("one run spans the column", (run,), torch.tensor(p, device=dev), 2, 16),
         ("3 words k=31", words31, nv31, MIN_COUNT, MAIN_CAP),
         ("bits=5 k=5, 1 word", *protein[5], 2, MAIN_CAP),
         ("bits=5 k=21, 4 words", *protein[21], 2, MAIN_CAP),
     ]
+    erng = np.random.default_rng([seed, 5])
+    for m in (1, 10, 100):
+        for n_words in (0, 1, 3, 4):
+            cols, nv = edge_columns(erng, dev, 5 * FIN_TILE + 123, m, n_words)
+            form = f"{n_words} words" if n_words else "u64"
+            for cap in (1 << 20, 7):
+                cases.append((f"tile edges m={m} {form} cap={cap}", cols,
+                              torch.tensor(nv, device=dev), m, cap))
     for case, cols, nv, mc, cap in cases:
         got = finalize_sorted(cols, nv, min_count=mc, cap=cap)
         want = finalize_sorted_plain(cols, nv, min_count=mc, cap=cap)
@@ -282,8 +370,17 @@ def phase_kernels(dev, seed: int) -> dict:
               (*got[0], got[1], got[2]), (*want[0], want[1], want[2]))
         if case == "n_out>cap" and int(want[2]) <= cap:
             raise AssertionError("the n_out > cap case did not overflow")
+
+    # -- the main launch: pre-sort half (validity -> the column torch.sort
+    # takes) and the whole launch (pre-sort, sort, finalize, split) -------
+    launch_args = (g.words, g.gap_begin, g.gap_end, g.file_starts)
+    times = {
+        "presort_ms": cuda_ms(lambda: packed_sort_keys(*launch_args, **main), reps=20),
+        "launch_ms": cuda_ms(lambda: count_kmers_packed(
+            *launch_args, MIN_COUNT, cap=MAIN_CAP, **main), reps=20),
+    }
     torch.cuda.synchronize()
-    return res
+    return res, times
 
 
 def phase_dense(dev, seed: int) -> dict:
@@ -585,7 +682,7 @@ def recount_on_cpu(tag: str, paths: list, card_tsv: Path, out: Path, argv: list)
 def phase_slice(dev, seed: int) -> dict:
     """The port's CLI over the generated set on the card, then 3 files
     recounted with the plain path on the CPU; returns the launches."""
-    from mercat2_tpu.io.native import native_lib
+    from mercat2_tpu_torch.io.native import native_lib
     from mercat2_tpu_torch.engine.counter import KmerCounter
 
     work = REPO / "chip_smoke_work"
@@ -914,13 +1011,19 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain twins
     print("kernels vs plain twins:", flush=True)
-    kres = phase_kernels(dev, args.seed)
+    kres, times = phase_kernels(dev, args.seed)
     for name, r in kres.items():
+        r["bound_ms"] = bound_ms(r["bytes"])
         print(f"  {name}: kernel {r['ms']!r} ms, plain {r['plain_ms']!r} / "
-              f"{r['plain_ms_2']!r} ms (median of {REPS}, CUDA events)", flush=True)
+              f"{r['plain_ms_2']!r} ms (median of {REPS}, CUDA events); "
+              f"{r['bytes']} bytes, bound {r['bound_ms']!r} ms, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of it; library "
+              f"{r.get('library_ms')!r} ms", flush=True)
     r = kres["build_keys"]
     print(f"  build_keys bits=5 k=21: kernel {r['bits5_ms']!r} ms, plain "
           f"{r['bits5_plain_ms']!r} / {r['bits5_plain_ms_2']!r} ms", flush=True)
+    print(f"  main launch (k={K}, {MAIN_FILES} files, {MAIN_SYMS} symbols): pre-sort half "
+          f"{times['presort_ms']!r} ms, whole launch {times['launch_ms']!r} ms", flush=True)
     print("dense route vs sorted route:", flush=True)
     phase_dense(dev, args.seed)
 
@@ -938,7 +1041,8 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "launches": launches[name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
-         "plain_ms": kres[name]["plain_ms"]}
+         "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
+         "bound_by": "bytes", "library_ms": kres[name].get("library_ms")}
         for name, meta in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

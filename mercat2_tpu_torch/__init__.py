@@ -8,9 +8,11 @@ kernels (``csrc/``) that are compiled with ``nvcc`` at first use. Every
 kernel has a plain PyTorch twin in the same module; the twin serves CPU
 tensors only, so the CPU tests can hold the port against the JAX package.
 
-Importing this package imports no JAX and compiles nothing.
+Importing this package imports no JAX and compiles nothing. No module of
+it imports ``mercat2_tpu``: the host code it shares with the JAX package
+(``io/``, ``orf/``, ``metrics/``, ``version.py``) is copied here.
 """
 
-from mercat2_tpu.version import __version__
+from mercat2_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

@@ -17,7 +17,7 @@ import argparse
 import os
 import sys
 
-from mercat2_tpu.version import __version__
+from mercat2_tpu_torch.version import __version__
 from mercat2_tpu_torch.device import NoCudaError
 
 

@@ -132,7 +132,7 @@ def _count_host(seq: np.ndarray, rec: np.ndarray, k: int, min_count: int) -> Kme
 def count_file_host(path, k: int, min_count: int) -> KmerTable:
     """One file's table by :func:`_count_host`, after dropping records
     shorter than k (``KmerCounter.count`` of the JAX package for k > 256)."""
-    from mercat2_tpu.io.fasta import parse_fasta_seq
+    from mercat2_tpu_torch.io.fasta import parse_fasta_seq
 
     seq, rec = _drop_short_records(*parse_fasta_seq(path), k)
     if seq.shape[0] < k:
@@ -290,7 +290,7 @@ def source_for(path, codec: Codec, nf=None):
     """Packed-transport source for one file: native handle or numpy."""
     if nf is not None:
         return nf
-    from mercat2_tpu.io.native import open_fasta_native
+    from mercat2_tpu_torch.io.native import open_fasta_native
 
     try:
         nf = open_fasta_native(path)
@@ -298,7 +298,7 @@ def source_for(path, codec: Codec, nf=None):
         nf = None
     if nf is not None:
         return nf
-    from mercat2_tpu.io.fasta import parse_fasta_seq
+    from mercat2_tpu_torch.io.fasta import parse_fasta_seq
 
     seq, rec = parse_fasta_seq(path)
     return NumpySource(seq, rec, codec)

@@ -9,7 +9,7 @@ are plain torch functions, run on whatever device they are given.
 
 Numerics: float64 throughout. The JAX version is float32 only because
 TPUs lack f64; on the H100 (and the CPU) the port follows the host path
-of ``mercat2_tpu.metrics.{protein,alpha}`` term by term, so its rounded
+of ``metrics/{protein,alpha}.py`` term by term, so its rounded
 outputs are the host path's. Sums are taken in another order than numpy's,
 so raw MW, hydropathy and Shannon values may differ from the host's in
 the last bits; the pI bisection makes the same decisions and gives the
@@ -23,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from mercat2_tpu.metrics import protein as _p
+from mercat2_tpu_torch.metrics import protein as _p
 
 __all__ = ["alpha_metrics_device", "protein_metrics_device"]
 
@@ -122,7 +122,7 @@ def alpha_metrics_device(counts: np.ndarray, device) -> dict:
     """All nine alpha metrics of one count vector, 'NA' where undefined.
 
     The values, and their Python types, are those of the host path
-    (``mercat2_tpu.metrics.alpha``): where the host returns an int (the
+    (``metrics/alpha.py``): where the host returns an int (the
     observed count of an exact Chao1 interval, ACE without rare k-mers)
     so does this, so that both print alike.
     """

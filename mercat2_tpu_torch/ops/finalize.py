@@ -6,8 +6,10 @@ transport becomes a compacted (key, count) table::
 
     packed words + gap ranges
       -> window validity (difference array + cumsum)
-      -> masked sort-key columns, tagged with the file id  (build_keys kernel)
-      -> one sort: the fused int64 key for 2-word keys, LSD passes otherwise
+      -> masked sort-key columns, tagged with the file id, a 2-word key
+         fused into one sign-flipped int64, valid windows counted
+                                                            (build_keys kernel)
+      -> one sort: of the fused int64 column, or LSD passes otherwise
       -> run boundaries, min-count filter, compaction      (finalize kernel)
 
 Key words are int32 bit patterns of the JAX package's uint32 words, fused
@@ -26,9 +28,9 @@ import torch
 from mercat2_tpu_torch.ops.kmer_pack import key_words_for
 
 __all__ = [
-    "build_keyed_words", "count_kmers_packed", "fid_layout",
-    "packed_sort_keys", "packed_window_validity", "sort_fused_u64",
-    "sort_words", "split_u64", "unpack_codes",
+    "build_keyed_words", "count_kmers_packed", "fid_layout", "fuse_u64",
+    "packed_sort_keys", "packed_window_validity", "sort_words", "split_u64",
+    "unpack_codes",
 ]
 
 _ONES32 = -1
@@ -36,16 +38,17 @@ _SIGN64 = -(1 << 63)
 _LOW32 = 0xFFFFFFFF
 
 
-def sort_fused_u64(keyed: list[torch.Tensor]) -> torch.Tensor:
-    """Fuse a 2-word key column pair into one int64 column and sort it.
+def fuse_u64(keyed: list[torch.Tensor]) -> torch.Tensor:
+    """Fuse a 2-word key column pair into one int64 column.
 
     Word 0 carries the most significant key bits, so ``(w0 << 32) | w1``
-    keeps the unsigned order of the (w0, w1) tuple. Returns the sorted
-    column with its sign bit flipped (see the module docstring); equality,
-    which is all the finalize reads, is unchanged by the flip.
+    keeps the unsigned order of the (w0, w1) tuple. Returns the column with
+    its sign bit flipped (see the module docstring), so that its signed
+    order is that unsigned order; equality, which is all the finalize
+    reads, is unchanged by the flip.
     """
     x = (keyed[0].to(torch.int64) << 32) | (keyed[1].to(torch.int64) & _LOW32)
-    return torch.sort(x ^ _SIGN64).values
+    return x ^ _SIGN64
 
 
 def split_u64(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -242,15 +245,16 @@ def _sort_and_finalize(keyed: list, n_valid, min_count: int, cap: int,
                        strip_tail: int):
     """Sort key columns and reduce them to the compacted table.
 
-    2-word keys take the fused int64 sort and the finalize kernel's u64
-    mode; other widths take the LSD sort and its word mode. Returns
-    (words, counts, n_out) with ``strip_tail`` trailing columns dropped.
+    A fused int64 column (2-word keys) takes one sort and the finalize
+    kernel's u64 mode; int32 columns take the LSD sort and its word mode.
+    Returns (words, counts, n_out) with ``strip_tail`` trailing columns
+    dropped.
     """
     from mercat2_tpu_torch.ops.finalize_kernel import finalize_sorted
 
-    if len(keyed) == 2:
+    if keyed[0].dtype == torch.int64:
         (keys,), counts, n_out = finalize_sorted(
-            (sort_fused_u64(keyed),), n_valid, min_count=min_count, cap=cap
+            (torch.sort(keyed[0]).values,), n_valid, min_count=min_count, cap=cap
         )
         return list(split_u64(keys))[: 2 - strip_tail], counts, n_out
     words = sort_words(keyed)
@@ -289,28 +293,16 @@ def packed_sort_keys(packed: torch.Tensor, gap_begin: torch.Tensor,
                      k: int, bits: int, n_files: int, n_sym: int):
     """The pre-sort half of :func:`count_kmers_packed`.
 
-    Returns (keyed, n_valid, strip_tail): the masked, fid-tagged int32
-    sort-key columns, the device count of valid windows, and how many
-    trailing columns are dropped after the finalize.
+    Returns (keyed, n_valid, strip_tail): the sort-key columns (one fused,
+    sign-flipped int64 column for 2-word keys, else masked, fid-tagged
+    int32 columns), the device count of valid windows, and how many
+    trailing key words are dropped after the finalize.
     """
     from mercat2_tpu_torch.ops.build_keys import build_keys
 
     p = n_sym - k + 1
     valid = packed_window_validity(gap_begin, gap_end, k, p)
-    total, tiebreak = key_words_for(k, bits)
-    keyed = list(build_keys(packed, valid, k=k, bits=bits, p=p))
-
-    strip_tail = 0
-    if n_files == 1:
-        strip_tail = int(tiebreak)
-    else:
-        mode, shift = fid_layout(k, bits, n_files)
-        pos = torch.arange(p, device=packed.device)
-        fid = torch.searchsorted(file_starts.to(torch.int64), pos, right=True) - 1
-        if mode == "embedded":
-            # invalid rows are all-ones already, and ONES | x == ONES
-            keyed[0] = keyed[0] | (fid << shift).to(torch.int32)
-        else:  # the fid word takes the tie-break word's place
-            keyed = ([torch.where(valid, fid.to(torch.int32), _ONES32)]
-                     + keyed[: total - int(tiebreak)])
-    return keyed, valid.sum(), strip_tail
+    keyed, n_valid = build_keys(packed, valid, file_starts, k=k, bits=bits, p=p,
+                                n_files=n_files)
+    _, tiebreak = key_words_for(k, bits)
+    return list(keyed), n_valid, int(tiebreak) if n_files == 1 else 0

@@ -5,9 +5,10 @@ The port of the Pallas kernel ``finalize_sorted_pallas``
 the uniform path runs (``_finalize_sorted_u64`` for fused 2-word keys,
 ``_finalize_sorted`` for other widths). One CUDA kernel
 (``csrc/finalize.cu``) serves both input forms: one sorted int64 column
-(fused keys) or n sorted int32 columns. It has no per-tile emission cap,
-so the Pallas overflow sentinel is gone; ``n_out > cap`` still tells the
-caller to retry with room.
+(fused keys) or n sorted int32 columns, in one pass over the keys (a scan
+chained across tiles by decoupled look-back). It has no per-tile emission
+cap, so the Pallas overflow sentinel is gone; ``n_out > cap`` still tells
+the caller to retry with room.
 
 ``finalize_sorted`` launches the kernel for CUDA tensors and takes the
 plain twin :func:`finalize_sorted_plain` for CPU tensors.
@@ -20,10 +21,7 @@ import torch
 from mercat2_tpu_torch.ops import _build
 from mercat2_tpu_torch.ops.finalize import _finalize_sorted, _finalize_sorted_u64
 
-__all__ = ["finalize_sorted", "finalize_sorted_plain", "TILE"]
-
-#: rows per block of the count and scatter passes (csrc/finalize.cu)
-TILE = 4096
+__all__ = ["finalize_sorted", "finalize_sorted_plain"]
 
 
 def _is_u64(cols) -> bool:
@@ -66,24 +64,32 @@ def finalize_sorted(cols, n_valid, *, min_count: int, cap: int):
     p = int(cols[0].shape[0])
     if not 0 < p < (1 << 31) or any(c.shape != (p,) or c.device != dev for c in cols):
         raise ValueError("columns must be 1-D, of one length in [1, 2**31), on one device")
-    keys = cols[0].contiguous() if u64 else torch.stack(cols)
+    n = len(cols)
+    if u64:
+        keys, ld = cols[0].contiguous(), p
+        if keys.data_ptr() % 16:  # the kernel stages 16-byte vectors
+            keys = keys.clone()
+    else:  # column stride a multiple of 4: every column 16-byte aligned
+        ld = -(-p // 4) * 4
+        keys = torch.empty((n, ld), dtype=torch.int32, device=dev)
+        for c, col in enumerate(cols):
+            keys[c, :p].copy_(col)
     rows = min(cap, p)
     nv = torch.as_tensor(n_valid, device=dev).to(torch.int64).reshape(1)
-    n_blocks = -(-p // TILE)
-    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    offsets = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    lib = _build.load_library()
+    tile = lib.m2t_finalize_tile_rows(int(u64), n)
+    status = torch.empty(-(-p // tile) + 1, dtype=torch.int64, device=dev)
     n_out = torch.empty(1, dtype=torch.int32, device=dev)
     if u64:
         out_keys = torch.empty(rows, dtype=torch.int64, device=dev)
     else:
-        out_keys = torch.empty((len(cols), rows), dtype=torch.int32, device=dev)
+        out_keys = torch.empty((n, rows), dtype=torch.int32, device=dev)
     counts = torch.empty(rows, dtype=torch.int32, device=dev)
-    lib = _build.load_library()
     rc = lib.m2t_finalize(
-        int(u64), keys.data_ptr(), 1 if u64 else len(cols), p, nv.data_ptr(),
-        max(int(min_count), 1), rows, block_counts.data_ptr(),
-        offsets.data_ptr(), n_out.data_ptr(), out_keys.data_ptr(),
-        counts.data_ptr(), _build.stream_of(dev),
+        int(u64), keys.data_ptr(), n, ld, p, nv.data_ptr(),
+        max(int(min_count), 1), rows, status.data_ptr(), status.shape[0],
+        n_out.data_ptr(), out_keys.data_ptr(), counts.data_ptr(),
+        _build.stream_of(dev),
     )
     _build.check(rc, "finalize")
     finalize_sorted.launches += 1

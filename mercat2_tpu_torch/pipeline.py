@@ -4,11 +4,11 @@ Port of ``mercat2_tpu.pipeline.run_pipeline`` (which follows MerCat2's
 ``mercat_main``, bin/mercat2.py:186-503), less its multi-host branches::
 
     discover inputs (by extension)
-      fastq -> QC, trim, QC, fq2fa (fastp defaults)           host, reused
-      fna -> clean (split at N runs) + GC + assembly stats   host, reused
+      fastq -> QC, trim, QC, fq2fa (fastp defaults)           host, io/fastq.py
+      fna -> clean (split at N runs) + GC + assembly stats   host, io/clean.py
       faa -> registered as protein samples
     per round (nucleotide, then protein, prodigal, fgs):      process_round
-      chunk large files                                        host, reused
+      chunk large files                                        host, io/chunker.py
       one codec per round                                      _group_plan
       count: launch groups on the device, fetched in waves     _count_group
         (k > 256: the exact host path, per file)              _count_group_host
@@ -40,13 +40,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mercat2_tpu.io import fastq as fq_mod
-from mercat2_tpu.io.chunker import maybe_chunk
-from mercat2_tpu.io.clean import remove_n
-from mercat2_tpu.io.fasta import parse_fasta_seq
-from mercat2_tpu.io.native import open_fasta_native
-from mercat2_tpu.metrics.assembly import write_assembly_stats
-from mercat2_tpu.metrics.beta import compute_beta_diversity
 from mercat2_tpu_torch.device import resolve_device
 from mercat2_tpu_torch.engine.codec import (
     alphabet_of, canonical_codec, codec_for_alphabet,
@@ -55,8 +48,14 @@ from mercat2_tpu_torch.engine.counter import KmerCounter, fetch_tables
 from mercat2_tpu_torch.engine.host import (
     _REC_GAP, count_file_host, merge_tables, source_for,
 )
-from mercat2_tpu_torch.io.fastq import qc
+from mercat2_tpu_torch.io import fastq as fq_mod
+from mercat2_tpu_torch.io.chunker import maybe_chunk
+from mercat2_tpu_torch.io.clean import remove_n
+from mercat2_tpu_torch.io.fasta import parse_fasta_seq
+from mercat2_tpu_torch.io.native import open_fasta_native
 from mercat2_tpu_torch.metrics.alpha import compute_alpha_diversity
+from mercat2_tpu_torch.metrics.assembly import write_assembly_stats
+from mercat2_tpu_torch.metrics.beta import compute_beta_diversity
 from mercat2_tpu_torch.ops.build_keys import KERNEL_K
 from mercat2_tpu_torch.report import figures as figs
 from mercat2_tpu_torch.report.html import write_html
@@ -355,11 +354,11 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
     gc_content: dict[str, float] = {}
 
     def load_fastq(path: Path, basename: str):
-        qc(path, cleanpath, basename)
+        fq_mod.qc(path, cleanpath, basename)
         f = path
         if not cfg.skipclean:
             f = fq_mod.trim(f, cleanpath, basename)
-            qc(f, cleanpath, basename)
+            fq_mod.qc(f, cleanpath, basename)
         return basename, fq_mod.fq2fa(f, cleanpath, basename)
 
     def load_contig(path: Path, basename: str):
@@ -457,7 +456,7 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
         """ORF calls of every nucleotide sample, file-parallel. The fan-out
         is capped: a FragGeneScanRs process peaks above 1 GB on a
         multi-Mbp genome, and the gene model gains little past 4 threads."""
-        from mercat2_tpu.orf import orf_call
+        from mercat2_tpu_torch.orf import orf_call
 
         items = list(samples["nucleotide"].items())
         t0 = time.perf_counter()

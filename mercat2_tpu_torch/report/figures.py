@@ -91,7 +91,7 @@ def plot_sample_metrics(protein_samples: dict, tsv_out, device=None) -> dict:
 
     Equivalent of MerCat2's lib/mercat2_figures.py:140-202: re-reads
     each protein faa, computes the metrics (vectorized, see
-    mercat2_tpu.metrics.protein), writes the combined TSV (sorted by length
+    metrics/protein.py), writes the combined TSV (sorted by length
     descending per sample) and emits PI/MW/Hydro bar charts keyed like the
     reference ("{base}_PI" etc.). ``device`` is a torch device for the
     port's device metrics, or None for the host path.

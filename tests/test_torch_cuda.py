@@ -18,12 +18,17 @@ from mercat2_tpu_torch.engine.host import NumpySource
 from mercat2_tpu_torch.ops import _build
 from mercat2_tpu_torch.ops.build_keys import build_keys, build_keys_plain
 from mercat2_tpu_torch.ops.dense_hist import count_kmers_dense
-from mercat2_tpu_torch.ops.finalize import count_kmers_packed, sort_fused_u64
+from mercat2_tpu_torch.ops.finalize import (
+    count_kmers_packed, fid_layout, fuse_u64, split_u64,
+)
+from mercat2_tpu_torch.ops.kmer_pack import key_words_for
 from mercat2_tpu_torch.ops.finalize_kernel import (
     finalize_sorted, finalize_sorted_plain,
 )
 
 ONES = np.uint32(0xFFFFFFFF)
+#: the invalid marker of a fused key column: all-ones, sign bit flipped
+MARK64 = (1 << 63) - 1
 
 
 @pytest.fixture
@@ -72,6 +77,33 @@ def sorted_columns(rng, p, n_words, n_valid, max_run):
     return cols
 
 
+def key_columns(cols) -> tuple:
+    """Key-build columns as int32 key words: a fused int64 column split
+    back into its two words."""
+    if len(cols) == 1 and cols[0].dtype == torch.int64:
+        return split_u64(cols[0])
+    return tuple(cols)
+
+
+def assert_same_keys(got, want):
+    """Two ``build_keys`` results (columns, n_valid) are identical."""
+    (gc, gn), (wc, wn) = got, want
+    assert int(gn) == int(wn)
+    assert len(gc) == len(wc)
+    for g, t in zip(gc, wc):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert torch.equal(g.cpu(), t.cpu())
+
+
+def file_starts(rng, n_sym, n_real):
+    """32 sorted file starts as a launch pads them: ``n_real`` files from 0
+    on (two of them empty), the rest at ``n_sym``."""
+    starts = np.full(32, n_sym, np.int32)
+    inner = np.sort(rng.choice(np.arange(1, n_sym), n_real - 2, replace=False))
+    starts[:n_real] = np.concatenate([[0], inner[:1], inner]).astype(np.int32)
+    return starts
+
+
 def packed_stream(rng, k, bits, n):
     """Random codes packed into big-endian words, and 90%-valid windows."""
     per = 32 // bits
@@ -89,8 +121,8 @@ def packed_stream(rng, k, bits, n):
 def test_cpu_tensors_leave_launch_counters_at_zero(counters):
     rng = np.random.default_rng(0)
     words, valid, p = packed_stream(rng, 21, 2, 4000)
-    keyed = build_keys(i32(words), torch.from_numpy(valid), k=21, bits=2, p=p)
-    s = sort_fused_u64(list(keyed))
+    (col,), _ = build_keys(i32(words), torch.from_numpy(valid), k=21, bits=2, p=p)
+    s = torch.sort(col).values
     finalize_sorted((s,), torch.tensor(p), min_count=1, cap=64)
     gb = torch.tensor([100, 4000], dtype=torch.int32)
     count_kmers_packed(i32(words), gb, gb + 3, torch.zeros(1, dtype=torch.int32),
@@ -148,8 +180,7 @@ def test_build_keys_kernel_matches_twin(cuda, counters, k, bits, n):
     want = build_keys_plain(w, v, k=k, bits=bits, p=p)
     torch.cuda.synchronize()
     assert build_keys.launches == 1
-    for g, t in zip(got, want, strict=True):
-        assert torch.equal(g, t)
+    assert_same_keys(got, want)
 
 
 @pytest.mark.cuda
@@ -163,8 +194,39 @@ def test_build_keys_kernel_all_invalid(cuda, counters, bits):
     got = build_keys(w, v, k=21, bits=bits, p=p)
     want = build_keys_plain(w, v, k=21, bits=bits, p=p)
     assert build_keys.launches == 1
-    for g, t in zip(got, want, strict=True):
-        assert torch.equal(g, t) and bool((g == -1).all())
+    assert_same_keys(got, want)
+    assert int(got[1]) == 0
+    for g in got[0]:
+        assert bool((g == (MARK64 if g.dtype == torch.int64 else -1)).all())
+
+
+#: every width at a k whose key fills one word and the next in part (two
+#: columns: fused), at one that fills one word (the tie-break word, or the
+#: fid word at 32 files: fused), and at k=130 (many int32 columns)
+FID_CASES = [(k, bits, n_files) for bits in range(1, 9) for n_files in (1, 32)
+             for k in (32 // bits, 40 // bits + 1, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bits,n_files", FID_CASES)
+def test_build_keys_kernel_fid_fused_matches_twin(cuda, counters, k, bits, n_files):
+    """The fid tag (embedded and the leading word), the fused column and
+    the valid count, at 1 and 32 files, against the twin."""
+    rng = np.random.default_rng(1000 * bits + k + n_files)
+    words, valid, p = packed_stream(rng, k, bits, 20011)
+    starts = file_starts(rng, p, 7) if n_files > 1 else np.zeros(1, np.int32)
+    args = (i32(words).to(cuda), torch.from_numpy(valid).to(cuda),
+            torch.from_numpy(starts).to(cuda))
+    kw = dict(k=k, bits=bits, p=p, n_files=n_files)
+    got = build_keys(*args, **kw)
+    want = build_keys_plain(*args, **kw)
+    assert build_keys.launches == 1
+    assert_same_keys(got, want)
+    total, tiebreak = key_words_for(k, bits)
+    n_cols = total
+    if n_files > 1 and fid_layout(k, bits, n_files)[0] == "word":
+        n_cols = total - int(tiebreak) + 1
+    assert (got[0][0].dtype == torch.int64) == (n_cols == 2)
 
 
 @pytest.mark.cuda
@@ -195,7 +257,7 @@ def test_finalize_kernel_matches_twin(cuda, counters, p, n_valid, n_words,
     nv = torch.tensor(n_valid, device=cuda)
     forms = [cols]
     if n_words == 2:  # the fused int64 form of the same keys
-        forms.append((sort_fused_u64(list(cols)),))
+        forms.append((torch.sort(fuse_u64(list(cols))).values,))
     for form in forms:
         got = finalize_sorted(form, nv, min_count=min_count, cap=cap)
         want = finalize_sorted_plain(form, nv, min_count=min_count, cap=cap)
@@ -204,6 +266,65 @@ def test_finalize_kernel_matches_twin(cuda, counters, p, n_valid, n_words,
         for g, t in zip(got[0] + (got[1],), want[0] + (want[1],), strict=True):
             assert torch.equal(g, t)
     assert finalize_sorted.launches == len(forms)
+
+
+#: rows of a finalize tile of the fused column (csrc/finalize.cu); word
+#: columns take this many or a power-of-two fraction, so its multiples are
+#: tile edges in every form
+FIN_TILE = 4096
+
+
+def edge_columns(rng, p, m, n_words):
+    """Sorted keys in runs of 1..2m+4 rows, one run of 1.5 tiles across a
+    tile edge, and n_valid inside a run; ``n_words`` 0 gives one fused
+    int64 column (invalid rows MARK64), else that many int32 word columns
+    (invalid rows all-ones). Returns (columns, n_valid)."""
+    is_start = np.zeros(p, bool)
+    is_start[np.cumsum(rng.integers(1, 2 * m + 5, size=p))[:p // 2].clip(max=p - 1)] = True
+    is_start[0] = True
+    long0 = FIN_TILE + 2000  # rows [long0, long0 + 6144) one run
+    is_start[long0 + 1 : long0 + 6144] = False
+    is_start[long0] = is_start[long0 + 6144] = True
+    run = np.cumsum(is_start) - 1
+    begins = np.flatnonzero(is_start)
+    lens = np.diff(np.append(begins, p))
+    inside = begins[(lens >= 4) & (begins > p - FIN_TILE)]
+    n_valid = int(inside[0]) + 2  # cuts that run after 2 rows
+    crosses = [e for e in range(FIN_TILE, p, FIN_TILE)
+               if run[e - 1] == run[e] and lens[run[e]] >= max(m, 2)]
+    assert crosses, "no surviving run crosses a tile edge"
+    key = (run.astype(np.int64) * 3 + 1)
+    if n_words == 0:
+        key[n_valid:] = MARK64
+        return (torch.from_numpy(key),), n_valid
+    width = -(-20 // n_words)
+    cols = [((key >> (width * (n_words - 1 - c))) & ((1 << width) - 1)).astype(np.uint32)
+            for c in range(n_words)]
+    for col in cols:
+        col[n_valid:] = ONES
+    return tuple(i32(col) for col in cols), n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1 << 20, 7])
+@pytest.mark.parametrize("n_words", [0, 1, 3, 4])
+@pytest.mark.parametrize("m", [1, 10, 100])
+def test_finalize_kernel_tile_edges(cuda, counters, m, n_words, cap):
+    """Runs across tile edges, a run longer than a tile, n_valid inside a
+    run, m = 1 and m beyond the stage's halo (64 rows), cap below n_out,
+    in the fused form and word mode with 1, 3 and 4 columns."""
+    rng = np.random.default_rng(10 * m + n_words)
+    p = 5 * FIN_TILE + 123
+    cols, n_valid = edge_columns(rng, p, m, n_words)
+    cols = tuple(c.to(cuda) for c in cols)
+    nv = torch.tensor(n_valid, device=cuda)
+    got = finalize_sorted(cols, nv, min_count=m, cap=cap)
+    want = finalize_sorted_plain(cols, nv, min_count=m, cap=cap)
+    torch.cuda.synchronize()
+    assert finalize_sorted.launches == 1
+    assert int(got[2]) == int(want[2]) > (cap if cap < p else 0)
+    for g, t in zip(got[0] + (got[1],), want[0] + (want[1],), strict=True):
+        assert torch.equal(g, t)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,10 @@
 """Read sets (fastq inputs) through the port's CLI against the JAX CLI, on
 the CPU.
 
-Both packages run the same host front end, ``mercat2_tpu.io.fastq``: QC of
-the raw reads, a fastp-default trim, QC of the trimmed reads, and fq2fa
-(MerCat2's bin/mercat2.py fastq branch); the port writes the QC report
-with its own copy of ``qc`` (``mercat2_tpu_torch/io/fastq.py``). The
+Both packages run the same host front end: QC of the raw reads, a
+fastp-default trim, QC of the trimmed reads, and fq2fa (MerCat2's
+bin/mercat2.py fastq branch), the JAX package's ``mercat2_tpu.io.fastq``
+and the port's copy of it, ``mercat2_tpu_torch/io/fastq.py``. The
 reads carry a TruSeq adapter tail (10%), low-quality 3' tails, N bases,
 and some are, or become after trimming, shorter than k. The whole output
 trees must be equal (see tests/test_torch_report.py for how each kind of

@@ -18,6 +18,7 @@ from mercat2_tpu.ops.pallas_finalize import (
     _FIN_TILE, build_keys_pallas, finalize_sorted_pallas,
 )
 from mercat2_tpu_torch.ops.build_keys import build_keys
+from mercat2_tpu_torch.ops.finalize import split_u64
 from mercat2_tpu_torch.ops.finalize_kernel import finalize_sorted
 from test_torch_cuda import ONES, i32, packed_stream, sorted_columns, u32
 
@@ -34,7 +35,10 @@ def test_build_keys_twin_matches_pallas(k, bits, n):
     words, valid, p = packed_stream(rng, k, bits, n)
     want = build_keys_pallas(jnp.asarray(words), jnp.asarray(valid.astype(np.uint8)),
                              k=k, bits=bits, p=p, interpret=True)
-    got = build_keys(i32(words), torch.from_numpy(valid), k=k, bits=bits, p=p)
+    got, n_valid = build_keys(i32(words), torch.from_numpy(valid), k=k, bits=bits, p=p)
+    if got[0].dtype == torch.int64:  # two key words come fused, sign-flipped
+        got = split_u64(got[0])
+    assert int(n_valid) == int(valid.sum())
     assert len(got) == len(want)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), u32(g))

@@ -16,7 +16,7 @@ import torch
 from mercat2_tpu.ops import finalize as jfin
 from mercat2_tpu.ops import kmer_pack as jpack
 from mercat2_tpu_torch.ops.build_keys import build_keys_plain
-from test_torch_cuda import i32, u32
+from test_torch_cuda import i32, key_columns, u32
 from test_torch_report import (
     assert_rows, run_both, same_tree, write_contigs, write_proteins,
 )
@@ -43,7 +43,9 @@ def test_build_keys_plain_matches_jax(k, bits):
     jcodes = jfin.unpack_codes(jnp.asarray(words), bits, n_sym)
     payload = [w[:p] for w in jpack.pack_kmer_words(jcodes, k, bits)]
     want, _ = jfin.build_keyed_words(payload, jnp.asarray(valid), None, k, bits, 1)
-    got = build_keys_plain(i32(words), torch.from_numpy(valid), k=k, bits=bits, p=p)
+    got, n_valid = build_keys_plain(i32(words), torch.from_numpy(valid), k=k, bits=bits, p=p)
+    got = key_columns(got)
+    assert int(n_valid) == int(valid.sum())
     assert len(got) == len(want)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), u32(g))

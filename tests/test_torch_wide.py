@@ -37,7 +37,7 @@ from mercat2_tpu_torch.engine.codec import codec_for_bytes
 from mercat2_tpu_torch.engine.counter import KmerCounter, fetch_tables
 from mercat2_tpu_torch.engine.host import NumpySource
 from mercat2_tpu_torch.ops.build_keys import build_keys_plain
-from test_torch_cuda import i32, u32
+from test_torch_cuda import i32, key_columns, u32
 from test_torch_report import assert_rows, run_both, same_tree, write_contigs
 
 #: printable ASCII less ">": 93 symbols, a 7-bit codec
@@ -100,7 +100,9 @@ def test_build_keys_plain_matches_jax(k, bits):
     jcodes = jfin.unpack_codes(jnp.asarray(words), bits, n_sym)
     payload = [w[:p] for w in jpack.pack_kmer_words(jcodes, k, bits)]
     want, _ = jfin.build_keyed_words(payload, jnp.asarray(valid), None, k, bits, 1)
-    got = build_keys_plain(i32(words), torch.from_numpy(valid), k=k, bits=bits, p=p)
+    got, n_valid = build_keys_plain(i32(words), torch.from_numpy(valid), k=k, bits=bits, p=p)
+    got = key_columns(got)
+    assert int(n_valid) == int(valid.sum())
     assert len(got) == len(want)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), u32(g))
