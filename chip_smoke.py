@@ -44,9 +44,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    8-bit alphabet with bytes of 0x80 and above through the engine
    (``KmerCounter`` on the card against the same calls on the CPU), since
    the CLI stops in ``kmer_summary`` on such bytes, as the JAX CLI does.
+9. mesh: the sharded count of ``mercat2_tpu_torch/parallel/`` over four
+   shards of cuda:0 (and over every card when there are several; with one
+   card that run is reported as not run): phase 4's cleaned files through
+   ``pipeline._count_group_mesh``, every count TSV byte-identical to phase
+   4's, both kernels launched once a shard a batch; CUDA-event times of
+   its three stages (pre-sort and sort, exchange with its host sync,
+   merge sort and finalize) on the first batch; phase 5's proteomes at
+   k=21 (4 int32 key columns) through ``sharded_count_sources`` against
+   the single-device counter; the sharded dense histogram at k=5 against
+   ``count_kmers_dense``; two CLI processes joined by a gloo group (rank
+   0 and 1 on one card) over 8 of the slice's files against one process.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it a
-JSON object with each kernel's launches (summed over phases 4-8), error,
+JSON object with each kernel's launches (summed over phases 4-9), error,
 times, bound (bytes at the H100 SXM's 3.35 TB/s) and library yardstick.
 Imports nothing of JAX.
 """
@@ -58,6 +69,7 @@ import contextlib
 import gzip
 import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -67,6 +79,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
+#: generated inputs and outputs, one folder a phase; removed at the end
+WORK = REPO / "chip_smoke_work"
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -575,7 +589,8 @@ def tsv_rows(path: Path) -> int:
 
 def run_cli(argv: list) -> float:
     """The port's CLI, its log kept back except for the stage times (the
-    whole log goes to stderr if it raises); returns the wall time."""
+    whole log goes to stderr if it raises; the last run's is kept as
+    ``run_cli.log``); returns the wall time."""
     from mercat2_tpu_torch import cli
 
     log = io.StringIO()
@@ -588,7 +603,8 @@ def run_cli(argv: list) -> float:
         sys.stderr.write(log.getvalue())
         raise
     wall = time.perf_counter() - t0
-    for line in log.getvalue().splitlines():
+    run_cli.log = log.getvalue()
+    for line in run_cli.log.splitlines():
         if line.startswith(("Time", "Processing", "Running")):
             print(f"    {line.strip()}")
     return wall
@@ -681,83 +697,81 @@ def recount_on_cpu(tag: str, paths: list, card_tsv: Path, out: Path, argv: list)
 
 def phase_slice(dev, seed: int) -> dict:
     """The port's CLI over the generated set on the card, then 3 files
-    recounted with the plain path on the CPU; returns the launches."""
+    recounted with the plain path on the CPU; returns the launches. The
+    inputs, the output tree and the CLI's log stay in ``WORK / "slice"``
+    for phase 9."""
     from mercat2_tpu_torch.io.native import native_lib
     from mercat2_tpu_torch.engine.counter import KmerCounter
 
-    work = REPO / "chip_smoke_work"
+    work = WORK / "slice"
     shutil.rmtree(work, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        paths = write_inputs(work / "in", seed)
-        print(f"slice: wrote {len(paths)} files, {N_BASES} bp in "
-              f"{time.perf_counter() - t0:.1f} s; FASTA parser: "
-              f"{'native C++' if native_lib() is not None else 'numpy'}", flush=True)
+    t0 = time.perf_counter()
+    paths = write_inputs(work / "in", seed)
+    print(f"slice: wrote {len(paths)} files, {N_BASES} bp in "
+          f"{time.perf_counter() - t0:.1f} s; FASTA parser: "
+          f"{'native C++' if native_lib() is not None else 'numpy'}", flush=True)
 
-        wall, launches, _ = drive(["-k", K, "-f", work / "in", "-o", work / "out",
-                                   "-c", MIN_COUNT, "-replace"])
+    wall, launches, _ = drive(["-k", K, "-f", work / "in", "-o", work / "out",
+                               "-c", MIN_COUNT, "-replace"])
+    (work / "cli.log").write_text(run_cli.log)
 
-        tsvs = {p.stem.removesuffix("_counts"): p
-                for p in (work / "out" / "tsv_nucleotide").glob("*_counts.tsv")}
-        rows = {name: tsv_rows(p) for name, p in tsvs.items()}
-        print(f"slice: wall {wall!r} s, {N_BASES / wall!r} bases/s, "
-              f"{sum(rows.values())} rows kept over {len(rows)} files, "
-              f"launches {launches}", flush=True)
-        if len(rows) != N_FILES or min(rows.values()) < 10_000:
-            raise AssertionError(f"expected {N_FILES} tables of >= 10^4 rows: {rows}")
-        if not both_kernels(launches) or launches["dense"]:
-            raise AssertionError(f"both kernels and no dense launch expected: {launches}")
-        first = sum(rows[f"sample{f:02d}"] for f in range(3))
-        if first <= KmerCounter._UNIFORM_CAP:
-            raise AssertionError(f"launch 0 kept {first} rows: no overflow rerun")
-        print(f"slice: launch 0 (sample00-02) kept {first} rows > cap "
-              f"{KmerCounter._UNIFORM_CAP}: the overflow rerun ran", flush=True)
+    tsvs = {p.stem.removesuffix("_counts"): p
+            for p in (work / "out" / "tsv_nucleotide").glob("*_counts.tsv")}
+    rows = {name: tsv_rows(p) for name, p in tsvs.items()}
+    print(f"slice: wall {wall!r} s, {N_BASES / wall!r} bases/s, "
+          f"{sum(rows.values())} rows kept over {len(rows)} files, "
+          f"launches {launches}", flush=True)
+    if len(rows) != N_FILES or min(rows.values()) < 10_000:
+        raise AssertionError(f"expected {N_FILES} tables of >= 10^4 rows: {rows}")
+    if not both_kernels(launches) or launches["dense"]:
+        raise AssertionError(f"both kernels and no dense launch expected: {launches}")
+    first = sum(rows[f"sample{f:02d}"] for f in range(3))
+    if first <= KmerCounter._UNIFORM_CAP:
+        raise AssertionError(f"launch 0 kept {first} rows: no overflow rerun")
+    print(f"slice: launch 0 (sample00-02) kept {first} rows > cap "
+          f"{KmerCounter._UNIFORM_CAP}: the overflow rerun ran", flush=True)
 
-        recount_on_cpu("slice", [paths[0], paths[5], paths[-1]],
-                       work / "out" / "tsv_nucleotide", work / "cpu",
-                       ["-k", K, "-c", MIN_COUNT])
-        return launches
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    recount_on_cpu("slice", [paths[0], paths[5], paths[-1]],
+                   work / "out" / "tsv_nucleotide", work / "cpu",
+                   ["-k", K, "-c", MIN_COUNT])
+    return launches
 
 
 def phase_protein(dev, seed: int) -> dict:
     """The port's CLI over 50 generated proteomes at k=5 and k=21 on the
-    card, then 3 files recounted on the CPU; returns the launches."""
-    work = REPO / "chip_smoke_work"
+    card, then 3 files recounted on the CPU; returns the launches. The
+    proteomes and the k=21 tree stay in ``WORK / "protein"`` for phase 9."""
+    work = WORK / "protein"
     shutil.rmtree(work, ignore_errors=True)
     total = dict.fromkeys(COUNTED, 0)
-    try:
-        t0 = time.perf_counter()
-        paths = write_proteomes(work / "faa", seed)
-        print(f"protein: wrote {len(paths)} files, {N_RESIDUES} residues in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        for k in (5, 21):
-            out = work / f"out{k}"
-            wall, launches, by_bits = drive(["-k", k, "-f", work / "faa", "-o", out,
-                                             "-c", MIN_COUNT, "-replace"])
-            rows = {p.name: tsv_rows(p) for p in (out / "tsv_protein").glob("*_counts.tsv")}
-            print(f"protein k={k}: wall {wall!r} s, {N_RESIDUES / wall!r} residues/s, "
-                  f"{sum(rows.values())} rows kept over {len(rows)} files, "
-                  f"launches by bits {by_bits}", flush=True)
-            if len(rows) != N_FILES or min(rows.values()) < 1000:
-                raise AssertionError(f"expected {N_FILES} tables of >= 10^3 rows: {rows}")
-            if set(by_bits) != {5} or not both_kernels(by_bits[5]) or launches["dense"]:
-                raise AssertionError(f"both kernels must launch at 5 bits: {by_bits}")
-            for name in total:
-                total[name] += launches[name]
-            recount_on_cpu(f"protein k={k}", [paths[0], paths[7], paths[-1]],
-                           out / "tsv_protein", work / f"cpu{k}",
-                           ["-k", k, "-c", MIN_COUNT])
-        return total
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_proteomes(work / "faa", seed)
+    print(f"protein: wrote {len(paths)} files, {N_RESIDUES} residues in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for k in (5, 21):
+        out = work / f"out{k}"
+        wall, launches, by_bits = drive(["-k", k, "-f", work / "faa", "-o", out,
+                                         "-c", MIN_COUNT, "-replace"])
+        rows = {p.name: tsv_rows(p) for p in (out / "tsv_protein").glob("*_counts.tsv")}
+        print(f"protein k={k}: wall {wall!r} s, {N_RESIDUES / wall!r} residues/s, "
+              f"{sum(rows.values())} rows kept over {len(rows)} files, "
+              f"launches by bits {by_bits}", flush=True)
+        if len(rows) != N_FILES or min(rows.values()) < 1000:
+            raise AssertionError(f"expected {N_FILES} tables of >= 10^3 rows: {rows}")
+        if set(by_bits) != {5} or not both_kernels(by_bits[5]) or launches["dense"]:
+            raise AssertionError(f"both kernels must launch at 5 bits: {by_bits}")
+        for name in total:
+            total[name] += launches[name]
+        recount_on_cpu(f"protein k={k}", [paths[0], paths[7], paths[-1]],
+                       out / "tsv_protein", work / f"cpu{k}",
+                       ["-k", k, "-c", MIN_COUNT])
+    return total
 
 
 def phase_pipeline(dev, seed: int) -> dict:
     """MerCat2's documented run without -pca on 5 generated genomes;
     returns the launches."""
-    work = REPO / "chip_smoke_work"
+    work = WORK / "pipeline"
     shutil.rmtree(work, ignore_errors=True)
     try:
         t0 = time.perf_counter()
@@ -853,7 +867,7 @@ def phase_fastq(dev, seed: int) -> dict:
     """Read sets through the port's CLI at -k 21 -c 10 with the QC, trim
     and fq2fa front end; one sample recounted on the CPU from its
     converted FASTA; returns the launches."""
-    work = REPO / "chip_smoke_work"
+    work = WORK / "fastq"
     shutil.rmtree(work, ignore_errors=True)
     try:
         t0 = time.perf_counter()
@@ -932,7 +946,7 @@ def phase_wide(dev, seed: int) -> dict:
     from mercat2_tpu_torch.engine.counter import KmerCounter, fetch_tables
     from mercat2_tpu_torch.engine.host import source_for
 
-    work = REPO / "chip_smoke_work"
+    work = WORK / "wide"
     shutil.rmtree(work, ignore_errors=True)
     total = dict.fromkeys(COUNTED, 0)
     try:
@@ -983,6 +997,292 @@ def phase_wide(dev, seed: int) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+#: phase 9's mesh on one card: four shards of cuda:0
+MESH_SHARDS = 4
+#: files of the slice that the two-process run counts
+HOST_FILES = 8
+
+
+@contextlib.contextmanager
+def mesh_stats():
+    """The stats of every ``sharded_count_sources`` call the pipeline
+    makes while the block runs (batches, rows received a shard)."""
+    from mercat2_tpu_torch import pipeline
+
+    seen: list[dict] = []
+    inner = pipeline.sharded_count_sources
+
+    def spy(*args, **kw):
+        seen.append({})
+        return inner(*args, stats=seen[-1], **kw)
+
+    pipeline.sharded_count_sources = spy
+    try:
+        yield seen
+    finally:
+        pipeline.sharded_count_sources = inner
+
+
+def mesh_slice(devices: list, label: str) -> dict:
+    """Phase 4's cleaned files through ``pipeline._count_group_mesh`` over
+    ``devices``: every count TSV must be byte-identical to phase 4's, and
+    each batch must launch both kernels once a shard. Returns the
+    launches."""
+    from mercat2_tpu_torch import pipeline
+    from mercat2_tpu_torch.engine.counter import KmerCounter
+
+    work = WORK / "slice"
+    single = work / "out" / "tsv_nucleotide"
+    names = sorted(p.name.removesuffix("_counts.tsv") for p in single.glob("*_counts.tsv"))
+    group = {n: [work / "out" / "clean" / f"{n}_clean.fna.gz"] for n in names}
+    out = work / f"mesh_{len(devices)}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir()
+    reset_counts()
+    t0 = time.perf_counter()
+    with mesh_stats() as stats, contextlib.redirect_stdout(io.StringIO()):
+        codec, handles = pipeline._group_plan(group)
+        try:
+            counter = KmerCounter(K, codec, devices[0])
+            pipeline._count_group_mesh(group, counter, MIN_COUNT, out, None, handles,
+                                       devices)
+        finally:
+            for nf in handles.values():
+                nf.close()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rows = [(min(batch), max(batch)) for st in stats for batch in st["rows_received"]]
+    single_s = [ln for ln in (work / "cli.log").read_text().splitlines()
+                if ln.startswith("Time to count")]
+    print(f"mesh {label}: {len(rows)} batches of {len(devices)} shards, rows received a "
+          f"shard (min, max) a batch {rows}; count stage {wall!r} s, phase 4 (one "
+          f"device) {single_s}; launches {launches}", flush=True)
+    n_launch = len(devices) * len(rows)
+    if launches["build_keys"] != n_launch or launches["finalize"] != n_launch:
+        raise AssertionError(f"mesh {label}: {launches}, expected {n_launch} of each kernel")
+    differ = [n for n in names if (out / f"{n}_counts.tsv").read_bytes()
+              != (single / f"{n}_counts.tsv").read_bytes()]
+    if differ or len(names) != N_FILES:
+        raise AssertionError(f"mesh {label}: count TSVs differ from phase 4's: {differ}")
+    print(f"mesh {label}: {len(names)} count TSVs byte-identical to phase 4's", flush=True)
+    return launches
+
+
+def stage_ms(fn, cycles: int = 200_000_000):
+    """Device time of ``fn()`` on the current stream, from CUDA events
+    around it after a sleep on the stream that lets the host enqueue the
+    call first (up to its first sync); returns (ms, fn's result)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    a.record()
+    res = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), res
+
+
+def mesh_stages(devices: list) -> dict:
+    """CUDA-event device times of the sharded count's three stages on the
+    slice's first batch (32 cleaned files), medians of 3, and one launch
+    of the same batch on one device."""
+    from mercat2_tpu_torch.engine.counter import KmerCounter, to_torch_group
+    from mercat2_tpu_torch.engine.codec import DNA_CODEC
+    from mercat2_tpu_torch.engine.host import build_packed_group, source_for
+    from mercat2_tpu_torch.ops.finalize import count_kmers_packed
+    from mercat2_tpu_torch.parallel import count
+
+    clean = sorted((WORK / "slice" / "out" / "clean").glob("*_clean.fna.gz"))[:MAIN_FILES]
+    sources = [source_for(p, DNA_CODEC) for p in clean]
+    try:
+        group = build_packed_group(K, DNA_CODEC, sources)
+    finally:
+        for src in sources:
+            src.close()
+    counter = KmerCounter(K, DNA_CODEC, devices[0])
+    times: dict[str, list] = {"presort": [], "exchange": [], "merge": [], "one_device": []}
+    for _ in range(3):
+        ms, shards = stage_ms(lambda: count._presort(counter, group, devices, MAIN_FILES))
+        times["presort"].append(ms)
+        ms, (recv, n_recv) = stage_ms(lambda: count._exchange(shards, devices))
+        times["exchange"].append(ms)
+        del shards
+        ms, merged = stage_ms(lambda: count._merge(recv, n_recv, MIN_COUNT, 0))
+        times["merge"].append(ms)
+        del recv, merged
+    t = to_torch_group(group, devices[0])
+    for _ in range(3):
+        ms, _ = stage_ms(lambda: count_kmers_packed(
+            t.words, t.gap_begin, t.gap_end, t.file_starts, MIN_COUNT, k=K, bits=2,
+            cap=MAIN_CAP, n_files=MAIN_FILES, n_sym=t.n_sym))
+        times["one_device"].append(ms)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    print(f"mesh stages on {len(devices)} shards, first batch ({MAIN_FILES} files, "
+          f"{group.n_sym} symbols), medians of 3 (CUDA events, ms): per-shard pre-sort "
+          f"and sort {med['presort']!r}, exchange incl. its host sync "
+          f"{med['exchange']!r}, merge sort and finalize {med['merge']!r}; sum "
+          f"{med['presort'] + med['exchange'] + med['merge']!r}; the batch as one "
+          f"launch on one device {med['one_device']!r}; all {times!r}", flush=True)
+    return med
+
+
+def mesh_protein(devices: list) -> dict:
+    """Phase 5's proteomes at k=21 (5 bits, 4 int32 key columns) through
+    ``sharded_count_sources`` over ``devices``: tables equal to the
+    single-device counter's. Returns the launches."""
+    from mercat2_tpu_torch import pipeline
+    from mercat2_tpu_torch.engine.counter import KmerCounter, fetch_tables
+    from mercat2_tpu_torch.engine.host import source_for
+    from mercat2_tpu_torch.parallel import sharded_count_sources
+
+    paths = sorted((WORK / "protein" / "faa").glob("*.faa"))
+    codec, handles = pipeline._group_plan({p.name: [p] for p in paths})
+    for nf in handles.values():
+        nf.close()
+    if codec.bits != 5:
+        raise AssertionError(f"not a 5-bit codec: {codec}")
+    tables = {}
+    for name in ("single", "mesh"):
+        sources = [source_for(p, codec) for p in paths]
+        reset_counts()
+        try:
+            if name == "single":
+                tables[name] = fetch_tables(KmerCounter(21, codec, devices[0])
+                                            .dispatch_packed_uniform(sources, MIN_COUNT))
+            else:
+                stats: dict = {}
+                tables[name] = sharded_count_sources(KmerCounter(21, codec, devices[0]),
+                                                     sources, MIN_COUNT, devices, stats=stats)
+        finally:
+            for src in sources:
+                src.close()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    same = all(np.array_equal(a.kmers, b.kmers) and np.array_equal(a.counts, b.counts)
+               for a, b in zip(tables["single"], tables["mesh"], strict=True))
+    rows = sum(len(t) for t in tables["mesh"])
+    print(f"mesh protein k=21: {len(paths)} proteomes, {rows} rows, {stats['batches']} "
+          f"batches, rows received a shard {stats['rows_received']}, launches {launches}, "
+          f"tables equal to the single-device counter's: {same}", flush=True)
+    n_launch = len(devices) * stats["batches"]
+    if not same or rows == 0 or launches["build_keys"] != n_launch \
+            or launches["finalize"] != n_launch:
+        raise AssertionError(f"mesh protein k=21: equal {same}, rows {rows}, {launches}")
+    return launches
+
+
+def mesh_dense(dev, seed: int, devices: list) -> None:
+    """``sharded_dense_histogram`` at k=5 over ``devices`` on the main
+    launch (as a uint8 stream, gap symbols as the sentinel) against the
+    single-device ``count_kmers_dense`` bins of the same launch."""
+    from mercat2_tpu_torch.engine.counter import to_torch_group
+    from mercat2_tpu_torch.ops.dense_hist import count_kmers_dense
+    from mercat2_tpu_torch.parallel import shard_stream, sharded_dense_histogram
+
+    k = 5
+    group = main_path_group(np.random.default_rng([seed, 9]), MAIN_SYMS, MAIN_FILES)
+    shifts = (30 - 2 * np.arange(16)).astype(np.uint32)
+    codes = ((group.words[:, None] >> shifts) & 3).astype(np.uint8).reshape(-1)
+    gap = np.zeros(MAIN_SYMS + 1, np.int32)
+    np.add.at(gap, group.gap_begin, 1)
+    np.add.at(gap, group.gap_end, -1)
+    codes[np.cumsum(gap[:MAIN_SYMS]) > 0] = 4  # the sentinel of a 4-symbol codec
+    t0 = time.perf_counter()
+    hist = sharded_dense_histogram(shard_stream(codes, k, len(devices), 4), k=k,
+                                   alphabet_size=4, devices=devices)
+    wall = time.perf_counter() - t0
+    t = to_torch_group(group, dev)
+    bins, counts, n_out = count_kmers_dense(
+        t.words, t.gap_begin, t.gap_end, torch.zeros(1, dtype=torch.int32, device=dev),
+        1, k=k, bits=2, alphabet_size=4, n_files=1, n_sym=MAIN_SYMS)
+    n = int(n_out)
+    want = np.zeros(4**k, np.int64)
+    want[bins[:n].cpu().numpy()] = counts[:n].cpu().numpy()
+    print(f"mesh dense k={k}: {len(devices)} shards, {int(hist.sum())} windows binned in "
+          f"{wall!r} s (host clock), equal to count_kmers_dense: "
+          f"{np.array_equal(hist, want)}", flush=True)
+    if not np.array_equal(hist, want) or hist.sum() == 0:
+        raise AssertionError("sharded dense histogram != count_kmers_dense")
+
+
+def mesh_two_hosts() -> None:
+    """Two CLI processes (``WORLD_SIZE=2``, ``RANK`` 0 and 1, a free
+    ``MASTER_PORT``) over 8 of the slice's files, both on cuda:0, and one
+    process over the same files: the output trees must be the same (gz
+    files compared decompressed; ``report/report.html`` left out, since
+    rank 0 writes it with the GC plot of its own samples only)."""
+    import socket
+
+    inputs = sorted((WORK / "slice" / "in").glob("*.fna"))[:HOST_FILES]
+    one, two = WORK / "slice" / "one_host", WORK / "slice" / "two_hosts"
+    argv = ["-k", K, "-c", MIN_COUNT, "-i", *inputs, "-replace"]
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = (f"import sys\nsys.path.insert(0, {str(REPO)!r})\n"
+            "from mercat2_tpu_torch.cli import main\n"
+            f"main({[str(a) for a in argv] + ['-o', str(two)]!r})\n")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2")
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            sys.stderr.write(text)
+            raise AssertionError(f"two hosts: rank {r} exited {p.returncode}")
+    wall2 = time.perf_counter() - t0
+    wall1 = run_cli([*argv, "-o", one])
+    files = sorted(str(f.relative_to(one)) for f in one.rglob("*") if f.is_file())
+    if files != sorted(str(f.relative_to(two)) for f in two.rglob("*") if f.is_file()):
+        raise AssertionError("two hosts: the trees hold other files")
+    differ = []
+    for rel in files:
+        a, b = (one / rel).read_bytes(), (two / rel).read_bytes()
+        if rel.endswith(".gz"):
+            a, b = gzip.decompress(a), gzip.decompress(b)
+        if a != b and rel != "report/report.html":
+            differ.append(rel)
+    counted = [sum(ln.startswith("Significant k-mers") for ln in text.splitlines())
+               for text in outs]
+    print(f"mesh two hosts: {len(files)} files, equal to one process's but "
+          f"report/report.html: {not differ}; samples counted by rank 0 / 1: {counted}; "
+          f"walls {wall2!r} s (two processes) and {wall1!r} s (one)", flush=True)
+    if differ or sorted(counted) != [HOST_FILES // 2] * 2:
+        raise AssertionError(f"two hosts: {differ}, counted {counted}")
+
+
+def phase_mesh(dev, seed: int) -> dict:
+    """Phase 9: the sharded count (``parallel/``) on the card; returns the
+    launches of its main path (the slice and the protein proteomes over
+    the mesh)."""
+    from mercat2_tpu_torch.parallel import make_mesh
+
+    total = dict.fromkeys(COUNTED, 0)
+    one_card = [torch.device("cuda", 0)] * MESH_SHARDS
+    runs = [(one_card, f"[cuda:0] x {MESH_SHARDS}")]
+    if torch.cuda.device_count() > 1:
+        runs.append((make_mesh(), f"every card ({torch.cuda.device_count()})"))
+    else:
+        print("mesh over every visible card: not run: 1 card", flush=True)
+    for devices, label in runs:
+        for name, n in mesh_slice(devices, label).items():
+            total[name] += n
+    mesh_stages(one_card)
+    for name, n in mesh_protein(one_card).items():
+        total[name] += n
+    mesh_dense(dev, seed, one_card)
+    mesh_two_hosts()
+    return total
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1027,14 +1327,18 @@ def main(argv=None) -> int:
     print("dense route vs sorted route:", flush=True)
     phase_dense(dev, args.seed)
 
-    # 4.-8. the main paths through the port's CLI (and the 8-bit engine);
-    # launches summed
+    # 4.-9. the main paths through the port's CLI (and the 8-bit engine),
+    # then the sharded count; launches summed
     launches = dict.fromkeys(COUNTED, 0)
-    for phase in (phase_slice, phase_protein, phase_pipeline, phase_fastq, phase_wide):
-        t0 = time.perf_counter()
-        for name, n in phase(dev, args.seed).items():
-            launches[name] += n
-        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        for phase in (phase_slice, phase_protein, phase_pipeline, phase_fastq,
+                      phase_wide, phase_mesh):
+            t0 = time.perf_counter()
+            for name, n in phase(dev, args.seed).items():
+                launches[name] += n
+            print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
     print(f"dense route launches (no kernel; plain PyTorch): {launches['dense']}", flush=True)
 
     print(json.dumps({"kernels": [

@@ -5,10 +5,12 @@
 
 Counts on the CUDA card unless ``-device cpu`` asks for the plain PyTorch
 path; with no card it exits non-zero. ``-device-metrics`` computes the
-protein metrics and alpha diversity on the same device. ``-mesh N``
-(N > 1) counts on the one device the port sees, and raises
-``NotImplementedError`` naming its ROADMAP item when more than one is
-visible (see ``pipeline.check_supported``).
+protein metrics and alpha diversity on the same device. ``-mesh auto``
+(the default) and ``-mesh N`` shard the count over ``min(N, cards)`` of
+the host's CUDA cards when that is more than one. Started by torchrun (or
+with ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set),
+each process counts its share of the input files and rank 0 writes the
+combined outputs (see ``pipeline``).
 """
 
 from __future__ import annotations
@@ -65,9 +67,8 @@ def parseargs(argv=None):
     parser.add_argument("-category_file", type=str, default=None, help=argparse.SUPPRESS)
     parser.add_argument("-debug", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("-mesh", type=str, default="auto",
-                        help="count-engine device mesh: 'auto', 'off' or N "
-                        "(counts on one device; N > 1 with several devices "
-                        "visible is not ported yet)")
+                        help="count-engine device mesh: 'auto' (every CUDA "
+                        "card of the host), 'off' or N (the first N cards)")
     parser.add_argument("-device-metrics", dest="device_metrics",
                         action="store_true",
                         help="protein metrics and alpha diversity on the "

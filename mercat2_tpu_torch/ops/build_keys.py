@@ -137,12 +137,13 @@ def build_keys(packed: torch.Tensor, valid: torch.Tensor,
         out = torch.empty((n_cols, ld), dtype=torch.int32, device=dev)
     n_valid = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _build.load_library()
-    rc = lib.m2t_build_keys(
-        packed.data_ptr(), packed.shape[0], valid.data_ptr(), starts.data_ptr(),
-        starts.shape[0] if fid_mode else 0, out.data_ptr(), ld, n_valid.data_ptr(),
-        p, k, bits, payload, kb0, int(tiebreak), fid_mode, fid_shift, n_cols,
-        int(fused), _build.stream_of(dev),
-    )
+    with torch.cuda.device(dev):  # the launch goes to the tensors' card
+        rc = lib.m2t_build_keys(
+            packed.data_ptr(), packed.shape[0], valid.data_ptr(), starts.data_ptr(),
+            starts.shape[0] if fid_mode else 0, out.data_ptr(), ld, n_valid.data_ptr(),
+            p, k, bits, payload, kb0, int(tiebreak), fid_mode, fid_shift, n_cols,
+            int(fused), _build.stream_of(dev),
+        )
     _build.check(rc, "build_keys")
     build_keys.launches += 1
     cols = (out,) if fused else tuple(out[c, :p] for c in range(n_cols))

@@ -85,12 +85,13 @@ def finalize_sorted(cols, n_valid, *, min_count: int, cap: int):
     else:
         out_keys = torch.empty((n, rows), dtype=torch.int32, device=dev)
     counts = torch.empty(rows, dtype=torch.int32, device=dev)
-    rc = lib.m2t_finalize(
-        int(u64), keys.data_ptr(), n, ld, p, nv.data_ptr(),
-        max(int(min_count), 1), rows, status.data_ptr(), status.shape[0],
-        n_out.data_ptr(), out_keys.data_ptr(), counts.data_ptr(),
-        _build.stream_of(dev),
-    )
+    with torch.cuda.device(dev):  # the launch and its attribute go to the tensors' card
+        rc = lib.m2t_finalize(
+            int(u64), keys.data_ptr(), n, ld, p, nv.data_ptr(),
+            max(int(min_count), 1), rows, status.data_ptr(), status.shape[0],
+            n_out.data_ptr(), out_keys.data_ptr(), counts.data_ptr(),
+            _build.stream_of(dev),
+        )
     _build.check(rc, "finalize")
     finalize_sorted.launches += 1
     out = (out_keys,) if u64 else tuple(out_keys.unbind(0))

@@ -1,7 +1,7 @@
-"""Pipeline of the port: MerCat2's whole run on one device.
+"""Pipeline of the port: MerCat2's whole run.
 
 Port of ``mercat2_tpu.pipeline.run_pipeline`` (which follows MerCat2's
-``mercat_main``, bin/mercat2.py:186-503), less its multi-host branches::
+``mercat_main``, bin/mercat2.py:186-503)::
 
     discover inputs (by extension)
       fastq -> QC, trim, QC, fq2fa (fastp defaults)           host, io/fastq.py
@@ -11,6 +11,7 @@ Port of ``mercat2_tpu.pipeline.run_pipeline`` (which follows MerCat2's
       chunk large files                                        host, io/chunker.py
       one codec per round                                      _group_plan
       count: launch groups on the device, fetched in waves     _count_group
+        (several cards: batches sorted across them)            _count_group_mesh
         (k > 256: the exact host path, per file)              _count_group_host
         -> tsv_{type}/{sample}_counts.tsv
       combined TSVs + k-mer summary (+ PCA with -pca)          _create_figures
@@ -22,14 +23,19 @@ Port of ``mercat2_tpu.pipeline.run_pipeline`` (which follows MerCat2's
 ``-device-metrics`` computes the protein metrics and alpha diversity with
 the port's torch functions on the count device; ``-debug`` prints host RAM
 at each stage and writes a ``torch.profiler`` trace to ``torch_trace/``.
-``-mesh N`` counts on the one device the port sees, as the JAX package
-does with one device; with more than one visible it raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 7 (see
-:func:`check_supported`). Nothing is silently skipped.
+``-mesh N`` (and ``auto``, the default) count over ``min(N, cards)`` of
+the host's CUDA cards with the sharded sort-count of ``parallel.count``
+when that is more than one (:func:`_resolve_mesh`). A multi-process run
+(torchrun's ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``)
+joins a gloo process group: each process counts its share of the input
+files (``parallel.dist.host_shard``) and writes its samples' outputs, and
+rank 0 writes the combined ones, as the JAX package's multi-host branches
+do. Nothing is silently skipped.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import shutil
 import time
@@ -57,12 +63,16 @@ from mercat2_tpu_torch.metrics.alpha import compute_alpha_diversity
 from mercat2_tpu_torch.metrics.assembly import write_assembly_stats
 from mercat2_tpu_torch.metrics.beta import compute_beta_diversity
 from mercat2_tpu_torch.ops.build_keys import KERNEL_K
+from mercat2_tpu_torch.parallel import flat_mesh, sharded_count_sources
+from mercat2_tpu_torch.parallel.dist import (
+    barrier, host_shard, init_distributed, is_coordinator,
+)
 from mercat2_tpu_torch.report import figures as figs
 from mercat2_tpu_torch.report.html import write_html
 from mercat2_tpu_torch.report.tsv import merge_tsv, merge_tsv_T, write_counts_tsv
 from mercat2_tpu_torch.utils.runtime import DebugTrace
 
-__all__ = ["PipelineConfig", "check_supported", "run_pipeline"]
+__all__ = ["PipelineConfig", "run_pipeline"]
 
 FILE_EXT_FASTQ = [".fq", ".fastq", ".fq.gz", ".fastq.gz"]
 FILE_EXT_NUCLEOTIDE = [
@@ -100,25 +110,21 @@ class PipelineConfig:
     device: str = "cuda"
 
 
-def _visible_devices(device: str) -> int:
-    """Devices a mesh could span: one CPU, or every visible CUDA card."""
-    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
-
-
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise for the one option whose stage the port does not have yet:
-    ``-mesh N`` (N > 1) while more than one device is visible. With one
-    device the JAX package counts on it (``_resolve_mesh`` takes
-    ``min(N, devices)``), and so does the port; ``auto`` always counts on
-    one device."""
-    if cfg.mesh in ("off", "auto"):
-        return
-    if int(cfg.mesh) > 1 and _visible_devices(cfg.device) > 1:
-        raise NotImplementedError(
-            f"-mesh {cfg.mesh} over {_visible_devices(cfg.device)} devices is "
-            "not ported to mercat2_tpu_torch yet (ROADMAP.md, Queue 1 item 7, "
-            "parallel/); run it with mercat2_tpu, or with -mesh off"
-        )
+def _resolve_mesh(policy: str, device: torch.device) -> list | None:
+    """PipelineConfig.mesh -> the cards to shard the count over, or None
+    (one device). ``auto`` takes every CUDA card of this host, ``N`` the
+    first ``min(N, cards)``; one card, ``off`` and the CPU (one device)
+    give None. Each process of a multi-host run meshes over its own
+    host's cards: hosts own disjoint files, so counting never crosses
+    hosts (``mercat2_tpu/pipeline.py:248-269``)."""
+    if policy == "off":
+        return None
+    want = None if policy == "auto" else int(policy)
+    if device.type != "cuda":
+        return None
+    n = torch.cuda.device_count()
+    want = n if want is None else min(want, n)
+    return flat_mesh(want) if want > 1 else None
 
 
 def _file_ext(path: Path) -> str:
@@ -201,35 +207,43 @@ def _count_group(group: dict, counter: KmerCounter, min_count: int,
     per file before chunks of one sample merge, as in MerCat2
     (lib/mercat2_kmers.py:73-76).
     """
-    jobs = [(basename, f) for basename, files in group.items() for f in files]
     tables: dict[str, list] = {basename: [] for basename in group}
     inflight: deque = deque()  # (names, pendings)
-    wave: list[tuple] = []     # (basename, source)
-    wave_syms = 0
-    wave_cap_syms = 2 * counter._UNIFORM_SYMS
-    wave_cap_files = 2 * counter._UNIFORM_FILES
 
     def fetch_wave() -> None:
         names, pendings = inflight.popleft()
         for name, tbl in zip(names, fetch_tables(pendings)):
             tables[name].append(tbl)
 
-    def dispatch_wave() -> None:
-        nonlocal wave, wave_syms
-        if not wave:
-            return
-        try:
-            pendings = counter.dispatch_packed_uniform(
-                [s for _, s in wave], min_count, workers
-            )
-        finally:
-            for _, s in wave:
-                s.close()
-        inflight.append(([n for n, _ in wave], pendings))
-        wave, wave_syms = [], 0
-        while len(inflight) > 2:
-            fetch_wave()
+    with contextlib.closing(_batches(
+            group, counter.codec, workers, handles, 2 * counter._UNIFORM_FILES,
+            2 * counter._UNIFORM_SYMS)) as waves:
+        for wave in waves:
+            try:
+                pendings = counter.dispatch_packed_uniform(
+                    [s for _, s in wave], min_count, workers
+                )
+            finally:
+                for _, s in wave:
+                    s.close()
+            inflight.append(([n for n, _ in wave], pendings))
+            while len(inflight) > 2:
+                fetch_wave()
+    while inflight:
+        fetch_wave()
+    return _write_tables(tables, counter.k, out_tsv_dir)
 
+
+def _batches(group: dict, codec, workers: int | None, handles: dict,
+             max_files: int, max_syms: int):
+    """The round's files as lists of (basename, source), cut at
+    ``max_files`` files or once past ``max_syms`` symbols. Threads open
+    and parse the files ahead; the caller closes the sources of every
+    list it takes, and closing the generator closes those not handed out.
+    """
+    jobs = [(basename, f) for basename, files in group.items() for f in files]
+    batch: list[tuple] = []
+    syms = 0
     with ThreadPoolExecutor(max_workers=workers) as pool:
         build_ahead = max(8, 2 * (workers or 4))
         pend = deque(jobs)
@@ -239,25 +253,29 @@ def _count_group(group: dict, counter: KmerCounter, min_count: int,
                 while pend and len(building) < build_ahead:
                     bname, f = pend.popleft()
                     building.append((bname, pool.submit(
-                        source_for, f, counter.codec, handles.pop(f, None))))
+                        source_for, f, codec, handles.pop(f, None))))
                 bname, fut = building.popleft()
                 source = fut.result()
-                wave.append((bname, source))
-                wave_syms += source.packed_len(_REC_GAP)
-                if len(wave) >= wave_cap_files or wave_syms > wave_cap_syms:
-                    dispatch_wave()
-            dispatch_wave()
+                batch.append((bname, source))
+                syms += source.packed_len(_REC_GAP)
+                if len(batch) >= max_files or syms > max_syms:
+                    full, batch, syms = batch, [], 0
+                    yield full
+            if batch:
+                full, batch = batch, []
+                yield full
         finally:  # on an error, close what is open
-            for _, s in wave:
+            for _, s in batch:
                 s.close()
             for _, fut in building:
                 fut.result().close()
-    while inflight:
-        fetch_wave()
 
+
+def _write_tables(tables: dict, k: int, out_tsv_dir: Path) -> dict:
+    """Merge each sample's per-file tables and write its count TSV."""
     tsv_list: dict[str, Path] = {}
-    for basename in group:
-        merged = merge_tables(tables[basename], counter.k)
+    for basename, tbls in tables.items():
+        merged = merge_tables(tbls, k)
         if len(merged):
             print(f"Significant k-mers: {len(merged)}")
             tsv_list[basename] = write_counts_tsv(
@@ -266,6 +284,39 @@ def _count_group(group: dict, counter: KmerCounter, min_count: int,
         else:
             print("No significant k-mers found")
     return tsv_list
+
+
+#: a mesh batch is cut at this many files or symbols
+#: (mercat2_tpu/pipeline.py:292, 344)
+_MESH_FILES = 32
+_MESH_SYMS = 256 << 20
+
+
+def _count_group_mesh(group: dict, counter: KmerCounter, min_count: int,
+                      out_tsv_dir: Path, workers: int | None, handles: dict,
+                      devices: list) -> dict:
+    """Count every sample of a round across ``devices`` and write its TSV.
+
+    Threads open and parse the files ahead; every ``_MESH_FILES`` files or
+    ``_MESH_SYMS`` symbols, the batch is counted in one sharded
+    sort-count (``parallel.count.sharded_count_sources``), which returns
+    exact per-file filtered tables. Every source is closed once its batch
+    is counted. Port of ``mercat2_tpu.pipeline._count_group_mesh``; the
+    dense route is not taken under a mesh, as there.
+    """
+    tables: dict[str, list] = {basename: [] for basename in group}
+    with contextlib.closing(_batches(group, counter.codec, workers, handles,
+                                     _MESH_FILES, _MESH_SYMS)) as batches:
+        for batch in batches:
+            try:
+                counted = sharded_count_sources(counter, [s for _, s in batch],
+                                                min_count, devices)
+            finally:
+                for _, s in batch:
+                    s.close()
+            for (name, _), tbl in zip(batch, counted):
+                tables[name].append(tbl)
+    return _write_tables(tables, counter.k, out_tsv_dir)
 
 
 def _count_group_host(group: dict, k: int, min_count: int,
@@ -324,20 +375,27 @@ def _prepare_output(cfg: PipelineConfig) -> Path:
 
 
 def run_pipeline(cfg: PipelineConfig) -> Path:
-    """Run every round and the report; returns the output folder."""
-    check_supported(cfg)
+    """Run every round and the report; returns the output folder.
+
+    In a multi-process run (see the module docstring) only rank 0 makes
+    the output folder, and every process waits for it before it starts.
+    """
     device = resolve_device(cfg.device)
-    out = _prepare_output(cfg)
+    multi = init_distributed()
+    coordinator = (not multi) or is_coordinator()
+    out = _prepare_output(cfg) if coordinator else Path(cfg.output)
+    if multi:
+        barrier("outdir")
     debug = DebugTrace(cfg.debug, out / "torch_trace" if cfg.debug else None,
                        device)
     with debug:  # the trace is written even when a stage raises
-        _run(cfg, device, out, debug)
+        _run(cfg, device, out, debug, multi, coordinator)
     print("\nFinished MerCat2-TPU Pipeline")
     return out
 
 
 def _run(cfg: PipelineConfig, device: torch.device, out: Path,
-         debug: DebugTrace) -> None:
+         debug: DebugTrace, multi: bool, coordinator: bool) -> None:
     """Load, every round, the report (the body of :func:`run_pipeline`)."""
     workers = cfg.num_cores or None
     cleanpath = out / "clean"
@@ -368,6 +426,8 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
         return basename, cleaned, stat
 
     inputs = _discover_inputs(cfg)
+    if multi:  # deterministic per-host file ownership (no task queue)
+        inputs = host_shard(inputs)
     with ThreadPoolExecutor(max_workers=workers) as pool:
         futures = []
         for path in inputs:
@@ -399,12 +459,10 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
 
     fig_plots: dict = {}
     diversity_outputs: dict[str, list[Path]] = {}
+    mesh = _resolve_mesh(cfg.mesh, device)
 
-    def process_round(sample_type: str, type_string: str) -> None:
-        """chunk -> count -> figures -> diversity for one sample family."""
-        group = samples[sample_type]
-        if not group:
-            return
+    def count_round(sample_type: str, type_string: str, group: dict) -> dict:
+        """chunk -> count for one sample family; its count TSVs."""
         if cfg.chunk_size_mb > 0:
             dir_chunks = out / f"chunks_{sample_type}"
             for basename, files in group.items():
@@ -421,6 +479,10 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
             if codec is not None and cfg.kmer > KERNEL_K[1]:
                 tsv_list = _count_group_host(group, cfg.kmer, cfg.min_count,
                                              out_tsv)
+            elif codec is not None and mesh is not None:
+                counter = KmerCounter(cfg.kmer, codec, device)
+                tsv_list = _count_group_mesh(group, counter, cfg.min_count,
+                                             out_tsv, workers, handles, mesh)
             elif codec is not None:
                 counter = KmerCounter(cfg.kmer, codec, device)
                 tsv_list = _count_group(group, counter, cfg.min_count,
@@ -431,20 +493,43 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
         print(f"Time to count {cfg.kmer}-mers: "
               f"{round(time.perf_counter() - t0, 2)} seconds")
         debug.stage(f"count {type_string}")
+        return tsv_list
+
+    def process_round(sample_type: str, type_string: str) -> None:
+        """count -> figures -> diversity for one sample family. In a
+        multi-host run every host takes part, samples or none: alpha
+        diversity of its own samples, a barrier, then rank 0 alone reads
+        every host's count TSVs back from the shared tree for the
+        combined TSVs and beta diversity (mercat2_tpu/pipeline.py:819-851)."""
+        group = samples[sample_type]
+        if not group and not multi:
+            return
+        tsv_list = count_round(sample_type, type_string, group) if group else {}
+
+        def alpha(own: dict) -> None:
+            div_dir = report_dir / "diversity"
+            div_dir.mkdir(parents=True, exist_ok=True)
+            for basename, tsv in own.items():
+                outfile = div_dir / f"{sample_type}-{basename}.tsv"
+                compute_alpha_diversity(basename, tsv, outfile, metrics_device)
+                diversity_outputs.setdefault(basename, []).append(outfile)
 
         t0 = time.perf_counter()
+        if multi:
+            alpha(tsv_list)
+            barrier(f"count-{type_string}")
+            if not coordinator:
+                return
+            tsv_list = {f.name.removesuffix("_counts.tsv"): f
+                        for f in sorted((out / f"tsv_{sample_type}").glob("*_counts.tsv"))}
         if tsv_list:
             fig_plots.update(_create_figures(tsv_list, type_string, out, cfg))
             beta_dir = report_dir / (
                 "diversity" if sample_type == "nucleotide" else "beta_diversity")
             compute_beta_diversity(
                 type_string, out / f"combined_{type_string}_T.tsv", beta_dir)
-        div_dir = report_dir / "diversity"
-        div_dir.mkdir(parents=True, exist_ok=True)
-        for basename, tsv in tsv_list.items():
-            outfile = div_dir / f"{sample_type}-{basename}.tsv"
-            compute_alpha_diversity(basename, tsv, outfile, metrics_device)
-            diversity_outputs.setdefault(basename, []).append(outfile)
+        if not multi:
+            alpha(tsv_list)
         print(f"Time for {type_string} figures and diversity: "
               f"{round(time.perf_counter() - t0, 2)} seconds")
 
@@ -481,6 +566,21 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
     for sample_type in ("protein", "prodigal", "fgs"):
         process_round(sample_type, sample_type)
 
+    if multi:
+        barrier("rounds")
+    if coordinator:
+        _write_report(report_dir, fig_plots, samples, metrics_device,
+                      diversity_outputs, multi)
+    if multi:
+        barrier("finish")
+    debug.stage("finish")
+
+
+def _write_report(report_dir: Path, fig_plots: dict, samples: dict,
+                  metrics_device, diversity_outputs: dict, multi: bool) -> None:
+    """report.html, the protein metrics and the merged diversity; rank 0
+    alone writes them in a multi-host run, from every host's per-sample
+    diversity files in the shared tree."""
     t0 = time.perf_counter()
     write_html(report_dir / "report.html", fig_plots, {})
     for sample_type in ("protein", "fgs", "prodigal"):
@@ -492,8 +592,12 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
 
     # per-type merge of the per-sample diversity (bin/mercat2.py:479-499)
     print("Gathering Diversity Metrics")
+    if multi:  # every host wrote {type}-{sample}.tsv to the shared tree
+        div_files = sorted((report_dir / "diversity").glob("*-*.tsv"))
+    else:
+        div_files = [f for files in diversity_outputs.values() for f in files]
     by_type: dict[str, dict[str, Path]] = {}
-    for f in (f for files in diversity_outputs.values() for f in files):
+    for f in div_files:
         typ, _, sample = f.stem.partition("-")  # "{type}-{sample}"
         by_type.setdefault(typ, {})[sample] = f
     for typ, tomerge in by_type.items():
@@ -501,4 +605,3 @@ def _run(cfg: PipelineConfig, device: torch.device, out: Path,
             key = "Nucleotide" if typ == "nucleotide" else typ
             merge_tsv(tomerge, report_dir / f"diversity-{key}.tsv")
     print(f"Time to write the report: {round(time.perf_counter() - t0, 2)} seconds")
-    debug.stage("finish")

@@ -506,3 +506,133 @@ def test_debug_run_traces_the_card(cuda, counters, tmp_path):
     cats = {e.get("cat") for e in events}
     assert "cpu_op" in cats and "kernel" in cats, sorted(c for c in cats if c)
     assert (out / "tsv_nucleotide" / "s0_counts.tsv").is_file()
+
+
+# -- the sharded count on the card (parallel/) --------------------------------------
+
+
+def mesh_sources(codec, n_files: int, seed: int, n_sym: int = 20_000):
+    """(seq, rec) pairs: random symbols in records of 5,000, each file
+    with a repeated stretch so that min-count 2 keeps rows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_files):
+        seq = codec.symbols[rng.integers(0, codec.size, size=n_sym)]
+        seq[3000:6000] = seq[9000:12000]
+        out.append((seq, (np.arange(n_sym) // 5000).astype(np.int64)))
+    return out
+
+
+def single_device_tables(k, codec, pairs, min_count, dev):
+    return fetch_tables(KmerCounter(k, codec, dev).dispatch_packed_uniform(
+        [NumpySource(s, r, codec) for s, r in pairs], min_count))
+
+
+def assert_same_tables(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.kmers, b.kmers)
+        np.testing.assert_array_equal(a.counts, b.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 7])
+@pytest.mark.parametrize("codec_name", ["dna", "protein"])
+def test_sharded_count_cuda_matches_single_device(cuda, counters, codec_name, n):
+    """32 files at k=21 over n shards of the card: 2-bit DNA (one fused
+    int64 column) and 5-bit protein (4 int32 columns), against the
+    single-device kernel path, exact; every shard launches both kernels
+    once."""
+    from mercat2_tpu_torch.engine.codec import PROTEIN_CODEC
+    from mercat2_tpu_torch.parallel import sharded_count_sources
+
+    codec = DNA_CODEC if codec_name == "dna" else PROTEIN_CODEC
+    pairs = mesh_sources(codec, 32, seed=n)
+    want = single_device_tables(21, codec, pairs, 2, cuda)
+    build_keys.launches = finalize_sorted.launches = 0
+    stats: dict = {}
+    got = sharded_count_sources(KmerCounter(21, codec, cuda),
+                                [NumpySource(s, r, codec) for s, r in pairs], 2,
+                                [cuda] * n, stats=stats)
+    torch.cuda.synchronize()
+    assert build_keys.launches == finalize_sorted.launches == n
+    assert stats["batches"] == 1 and min(stats["rows_received"][0]) > 0
+    assert sum(len(t) for t in got) > 1000
+    assert_same_tables(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_count_cuda_all_keys_equal(cuda, counters):
+    """A poly-A file: one key, so one shard receives every row and only it
+    runs the finalize; the others launch nothing after the key build."""
+    from mercat2_tpu_torch.parallel import sharded_count_sources
+
+    seq = np.full(50_000, ord("A"), np.uint8)
+    rec = np.zeros(50_000, np.int64)
+    want = single_device_tables(21, DNA_CODEC, [(seq, rec)], 1, cuda)
+    build_keys.launches = finalize_sorted.launches = 0
+    stats: dict = {}
+    got = sharded_count_sources(KmerCounter(21, DNA_CODEC, cuda),
+                                [NumpySource(seq, rec, DNA_CODEC)], 1, [cuda] * 4,
+                                stats=stats)
+    assert build_keys.launches == 4 and finalize_sorted.launches == 1
+    assert sorted(stats["rows_received"][0]) == [0, 0, 0, 50_000 - 20]
+    assert got[0].counts.tolist() == [50_000 - 20]
+    assert_same_tables(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_count_cuda_shards_without_windows(cuda, counters):
+    """Ten windows over 8 shards: one shard owns them all, and only it
+    runs the key build; each shard that receives rows runs the finalize."""
+    from mercat2_tpu_torch.parallel import sharded_count_sources
+
+    rng = np.random.default_rng(3)
+    seq = DNA_CODEC.symbols[rng.integers(0, 4, size=30)]
+    rec = np.zeros(30, np.int64)
+    want = single_device_tables(21, DNA_CODEC, [(seq, rec)], 1, cuda)
+    build_keys.launches = finalize_sorted.launches = 0
+    stats: dict = {}
+    got = sharded_count_sources(KmerCounter(21, DNA_CODEC, cuda),
+                                [NumpySource(seq, rec, DNA_CODEC)], 1, [cuda] * 8,
+                                stats=stats)
+    rows = stats["rows_received"][0]
+    assert sum(rows) == 10 and build_keys.launches == 1
+    assert finalize_sorted.launches == sum(r > 0 for r in rows)
+    assert len(got[0]) == 10
+    assert_same_tables(got, want)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 or more CUDA cards; this machine shows "
+                    f"{torch.cuda.device_count()}")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.cuda
+def test_second_card_counts_on_itself(two_cards, counters):
+    """The kernels launch on the tensors' card (cuda:1), not the current
+    one: the tables are the CPU's."""
+    pairs = mesh_sources(DNA_CODEC, 4, seed=11)
+    want = single_device_tables(21, DNA_CODEC, pairs, 2, torch.device("cpu"))
+    got = single_device_tables(21, DNA_CODEC, pairs, 2, two_cards[1])
+    assert build_keys.launches > 0 and finalize_sorted.launches > 0
+    assert_same_tables(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_count_over_every_card(two_cards, counters):
+    from mercat2_tpu_torch.parallel import sharded_count_sources
+
+    pairs = mesh_sources(DNA_CODEC, 32, seed=12)
+    want = single_device_tables(21, DNA_CODEC, pairs, 2, two_cards[0])
+    build_keys.launches = finalize_sorted.launches = 0
+    got = sharded_count_sources(KmerCounter(21, DNA_CODEC, two_cards[0]),
+                                [NumpySource(s, r, DNA_CODEC) for s, r in pairs], 2,
+                                two_cards)
+    assert build_keys.launches == finalize_sorted.launches == len(two_cards)
+    assert_same_tables(got, want)

@@ -1,5 +1,5 @@
-"""The port's CLI against the JAX package's CLI, what it refuses, and
-its packaging.
+"""The port's CLI against the JAX package's CLI, its ``-mesh`` policy,
+and its packaging.
 
 Both CLIs count the same FASTA folders (records with N runs and planted
 repeats, so the k=21 and k=31 tables are not empty); the count TSVs and
@@ -22,7 +22,7 @@ import torch
 
 from mercat2_tpu import cli as jax_cli
 from mercat2_tpu.engine.counter import KmerCounter as JaxCounter
-from mercat2_tpu_torch import cli
+from mercat2_tpu_torch import cli, pipeline
 from mercat2_tpu_torch.engine.counter import KmerCounter
 from mercat2_tpu_torch.utils import StageTimer
 from test_torch_fastq import write_reads
@@ -122,17 +122,26 @@ def test_cli_imports_no_jax(tmp_path, fasta_dir):
     assert (tmp_path / "fq_o" / "tsv_nucleotide" / "s1_counts.tsv").exists()
 
 
-@pytest.mark.parametrize("extra", [["-mesh", "2"], ["-mesh", "8"]])
-def test_flags_not_ported_raise(monkeypatch, tmp_path, fasta_dir, extra):
-    """``-mesh N`` (N > 1) raises only while more than one device is
-    visible (the count is patched to 2 cards); checked before the device
-    is resolved, so it raises here without a card."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    argv = ["-k", "5", "-f", str(fasta_dir), "-o", str(tmp_path / "o"),
-            "-device", "cuda", *extra]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7"):
-        cli.main(argv)
-    assert not (tmp_path / "o").exists()
+@pytest.mark.parametrize("cards", [1, 2, 4])
+@pytest.mark.parametrize("policy", ["auto", "off", "1", "2", "8"])
+def test_resolve_mesh(monkeypatch, policy, cards):
+    """``-mesh`` as the JAX package's ``_resolve_mesh`` reads it
+    (mercat2_tpu/pipeline.py:248-269): ``auto`` takes every card, N the
+    first min(N, cards), one device or ``off`` none; the CPU is one
+    device. The count of cards is patched, so no card is needed."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    want = cards if policy == "auto" else 0 if policy == "off" else min(int(policy), cards)
+    mesh = pipeline._resolve_mesh(policy, torch.device("cuda"))
+    if want <= 1:
+        assert mesh is None
+    else:
+        assert mesh == [torch.device("cuda", i) for i in range(want)]
+    assert pipeline._resolve_mesh(policy, torch.device("cpu")) is None
+
+
+def test_resolve_mesh_refuses_a_bad_policy():
+    with pytest.raises(ValueError):
+        pipeline._resolve_mesh("two", torch.device("cpu"))
 
 
 @pytest.mark.parametrize("mesh", ["2", "1", "off"])

@@ -3,7 +3,7 @@ copies of the JAX package's host code (``io/``, ``metrics/``, ``orf/``,
 ``version.py``) give the originals' results, on the CPU.
 
 - An AST scan of every module of ``mercat2_tpu_torch/``, of
-  ``chip_smoke.py`` and of ``scripts/launch_times.py`` finds no import of
+  ``chip_smoke.py`` and of ``scripts/{launch,mesh}_times.py`` finds no import of
   ``mercat2_tpu`` or ``jax``.
 - The port's CLI runs in a subprocess whose ``sys.meta_path`` refuses to
   import ``mercat2_tpu`` and ``jax``, and writes the same output tree as
@@ -51,7 +51,7 @@ from test_torch_report import same_tree, write_contigs, write_proteins
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("mercat2_tpu", "jax", "jaxlib")
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "mercat2_tpu_torch").rglob("*.py"))
-SCANNED = PORT_FILES + ["chip_smoke.py", "scripts/launch_times.py"]
+SCANNED = PORT_FILES + ["chip_smoke.py", "scripts/launch_times.py", "scripts/mesh_times.py"]
 
 
 # -- no import of the JAX package ----------------------------------------------
